@@ -1,0 +1,178 @@
+"""Fused quantile channel for BPSK/QPSK (``faid_tpu.ops.pallas_channel``).
+
+For one bit per LLR the whole front end (modulate, AWGN, demap,
+quantize) is a monotone staircase of one standard-normal draw, so the
+channel draws ONE uniform word per bit and compares it against the
+quantile thresholds of each quantizer step:
+
+  q >= k      <=>  ix >  A_k
+  q <= -k     <=>  ix <  B_k
+  soft > 0    <=>  ix >  H      (pre-decoder hard decision)
+
+with ix the word as int32 (u = (ix + 2^31) / 2^32).  A sent 1-bit
+mirrors the grid (``ix ^ -1``) and negates the output.  The output law
+is the float chain's marginal up to the 2^-32 grid and the float32
+normal CDF of the thresholds.
+
+The words come from the Philox stream of ops/philox.py.  On a CUDA
+tensor ``quantile_channel`` launches kernel A (csrc/quantile_channel.cu);
+on a CPU tensor it takes the plain twin, ``quantile_channel_plain``.
+Both give the same LLRs and counts bit for bit.  The punctured tail is
+left to the decoder's ingest, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import philox
+from .fixed_point import _QUANT_LIMITS
+
+_AMPLITUDE = {1: 1.0, 2: 0.707107}   # BPSK; QPSK rail
+
+
+def _step_offsets(quant_bits: int) -> np.ndarray:
+    """float64[L] quantizer step positions: {q >= k} <=> {y > off[k-1]};
+    integers for the truncating 2-5-bit quantizers, half-integers for the
+    round-half-even 6-bit one."""
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    ks = np.arange(1, max(hi, -lo) + 1, dtype=np.float64)
+    return ks - 0.5 if quant_bits == 6 else ks
+
+
+def threshold_ints(cfg, sigma: float) -> torch.Tensor:
+    """int32[2L+1] CPU tensor [A_1..A_L, B_1..B_L, H] for a sent 0-bit.
+
+    The port of ``pallas_channel._threshold_ints``, in float32 as there:
+    each probability is taken on its small side with ``ndtr``, rounded
+    half-to-even onto the 2^-32 grid, and turned into a threshold with
+    exact integer arithmetic.  A step whose probability rounds to 0
+    saturates to an unreachable threshold."""
+    f32 = dict(dtype=torch.float32)
+    a = torch.tensor(_AMPLITUDE[cfg.mod_type], **f32)
+    srail = torch.tensor(sigma, **f32)
+    if cfg.mod_type != 1:   # QPSK splits the noise power over I and Q
+        srail = srail / torch.sqrt(torch.tensor(2.0, **f32))
+    inv_scale = torch.tensor(1.0 / cfg.scale, **f32)
+    k = torch.as_tensor(_step_offsets(cfg.quant_bits), **f32)
+    two32 = torch.tensor(4294967296.0, **f32)
+    xmax = float(2**31 - 256)                  # float32-representable clamp
+    imax, imin = 2**31 - 1, -(2**31)
+    ndtr = torch.special.ndtr
+
+    def grid(p, lo=0.0):
+        return torch.clamp(torch.round(p * two32), lo, xmax).to(torch.int64)
+
+    t_a = (k * inv_scale + a) / srail
+    A = imax - grid(ndtr(-t_a))
+    t_b = (a - k * inv_scale) / srail
+    B = torch.where(t_b > 0, imax - grid(ndtr(-t_b), 1.0) + 1,
+                    imin + grid(ndtr(t_b)))
+    H = imax - grid(ndtr(-a / srail))
+    return torch.cat([A, B, H[None]]).to(torch.int32)
+
+
+def staircase(ix: torch.Tensor, mask: torch.Tensor, params: torch.Tensor,
+              quant_bits: int):
+    """int32 words -> (int8 LLR, int8 pre-decoder error indicator).
+
+    ``mask`` is 0 for a sent 0-bit and -1 for a 1-bit (mirrors the grid)."""
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    L = max(hi, -lo)
+    ixe = ix ^ mask
+    q = torch.zeros(ix.shape, dtype=torch.int32, device=ix.device)
+    for i in range(L):
+        q += (ixe > params[i]).to(torch.int32)
+        q -= (ixe < params[L + i]).to(torch.int32)
+    q = (q ^ mask) - mask                      # restore the bit's sign
+    if -lo != hi:                              # asymmetric final clip
+        q = torch.clamp(q, lo, hi)
+    return q.to(torch.int8), (ixe > params[2 * L]).to(torch.int8)
+
+
+def mod_stats(err: torch.Tensor, n_info: int, mod_type: int):
+    """ModCalErr map [batch, n] -> per-frame (info-bit errors, info-symbol
+    errors), each [batch] int32; a symbol is ``mod_type`` consecutive info
+    bits (``pallas_channel.reduce_mod_stats``)."""
+    e = err[:, :n_info] != 0
+    bits = e.sum(dim=1, dtype=torch.int32)
+    pad = (-n_info) % mod_type
+    if pad:
+        e = torch.cat([e, e.new_zeros((e.shape[0], pad))], dim=1)
+    syms = e.reshape(e.shape[0], -1, mod_type).any(dim=2)
+    return bits, syms.sum(dim=1, dtype=torch.int32)
+
+
+def _check_args(params, batch, n_var, n_info, mod_type, quant_bits, cw):
+    if mod_type not in (1, 2) or quant_bits not in _QUANT_LIMITS:
+        raise NotImplementedError(
+            f"quantile channel: mod_type {mod_type} / {quant_bits}-bit is "
+            f"not ported (BPSK/QPSK, 2-6 bits)")
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    if (params.dtype != torch.int32 or params.dim() != 1
+            or params.numel() != 2 * max(hi, -lo) + 1
+            or not params.is_contiguous()):
+        raise ValueError("params must be a contiguous int32 [2L+1] tensor")
+    if not 0 < n_info <= n_var:
+        raise ValueError(f"n_info={n_info} outside (0, n_var={n_var}]")
+    if cw is not None and (cw.dtype != torch.int8 or cw.shape != (batch, n_var)
+                           or cw.device != params.device
+                           or not cw.is_contiguous()):
+        raise ValueError("cw must be a contiguous int8 [batch, n_var] tensor "
+                         "on the params' device")
+
+
+def quantile_channel_plain(params, *, seed: int, rnd: int, batch: int,
+                           n_var: int, n_info: int, mod_type: int,
+                           quant_bits: int, frame0: int = 0, cw=None):
+    """Plain PyTorch twin of kernel A on ``params``' device."""
+    _check_args(params, batch, n_var, n_info, mod_type, quant_bits, cw)
+    ix = philox.channel_words(seed, rnd, frame0, batch, n_var, params.device)
+    mask = (torch.zeros_like(ix) if cw is None
+            else -(cw != 0).to(torch.int32))
+    llr, err = staircase(ix, mask, params, quant_bits)
+    bits, syms = mod_stats(err, n_info, mod_type)
+    return llr, bits, syms
+
+
+def quantile_channel(params, *, seed: int, rnd: int, batch: int, n_var: int,
+                     n_info: int, mod_type: int, quant_bits: int,
+                     frame0: int = 0, cw=None):
+    """Frames ``frame0 ..`` of round ``rnd`` through the quantile channel.
+
+    ``params`` is ``threshold_ints`` on the device to run on; ``cw`` the
+    [batch, n_var] int8 codeword, or None for the all-zero word.  Returns
+    (llr [batch, n_var] int8, mod_error_bits [batch] int32,
+    mod_error_symbols [batch] int32).  A CPU ``params`` takes the plain
+    twin; a CUDA one launches kernel A."""
+    if params.device.type == "cpu":
+        return quantile_channel_plain(
+            params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
+            n_info=n_info, mod_type=mod_type, quant_bits=quant_bits,
+            frame0=frame0, cw=cw)
+    if params.device.type != "cuda":
+        raise ValueError(f"no quantile channel for device {params.device}")
+    _check_args(params, batch, n_var, n_info, mod_type, quant_bits, cw)
+    philox.check_stream_args(seed, rnd, frame0, batch)
+    from ..utils import kernels
+
+    lib = kernels.library()
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    dev = params.device
+    llr = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
+    bits = torch.empty(batch, dtype=torch.int32, device=dev)
+    syms = torch.empty(batch, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.faid_quantile_channel(
+            None if cw is None else cw.data_ptr(), llr.data_ptr(),
+            bits.data_ptr(), syms.data_ptr(), params.data_ptr(), batch,
+            n_var, n_info, mod_type, max(hi, -lo), lo, hi, seed, rnd, frame0,
+            stream)
+    quantile_channel.launches += 1
+    kernels.check(status)
+    return llr, bits, syms
+
+
+quantile_channel.launches = 0

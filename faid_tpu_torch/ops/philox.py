@@ -1,0 +1,91 @@
+"""Philox4x32-10 counter-based generator: the channel's random stream.
+
+Replaces the TPU kernels' hardware PRNG (``pltpu.prng_random_bits``) and
+the portable threefry draws of ``faid_tpu.ops.pallas_channel``.  Neither
+can be reproduced here, so the port defines its own stream and owns both
+implementations of it: this plain-torch one, and the CUDA one in
+``csrc/philox.cuh``, which must give the same words bit for bit.
+
+Stream contract
+---------------
+One uint32 word per codeword bit.  The word for (seed, round, frame,
+bit) is a pure function of those four:
+
+  key     = (seed mod 2^32, seed >> 32)                 64-bit seed
+  counter = (bit // 4, frame, round mod 2^32, round >> 32)
+  (w0, w1, w2, w3) = Philox4x32-10(counter, key)
+  word(bit) = w[bit mod 4]
+
+``frame`` is the GLOBAL frame index within the round (a multi-device
+run offsets it by the device's first frame), ``round`` the Monte-Carlo
+round index.  Nothing depends on the batch size, the block size or the
+launch geometry, so any frame of any round can be replayed exactly.
+The channel uses the word bit-cast to int32 (``ix``).
+
+Philox4x32-10 is Random123's (Salmon et al., SC'11): ten rounds of
+``(c0, c1, c2, c3) -> (hi(M1*c2) ^ c1 ^ k0, lo(M1*c2), hi(M0*c0) ^ c3 ^ k1,
+lo(M0*c0))`` with the key bumped by the Weyl constants between rounds.
+
+The plain version computes in int64: each 32x32-bit product is split at
+16 bits so no intermediate leaves the exact int64 range.
+"""
+
+from __future__ import annotations
+
+import torch
+
+M0, M1 = 0xD2511F53, 0xCD9E8D57        # round multipliers
+W0, W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
+ROUNDS = 10
+_MASK = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit halves of m * x for a constant m < 2^32 and an int64
+    tensor x in [0, 2^32)."""
+    p_lo = x * (m & 0xFFFF)                       # < 2^48
+    p_hi = x * (m >> 16)                          # < 2^48
+    low_sum = p_lo + ((p_hi & 0xFFFF) << 16)      # < 2^49
+    return (p_hi >> 16) + (low_sum >> 32), low_sum & _MASK
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors (values in [0, 2^32)) broadcast
+    together; returns the four output words as int64 tensors."""
+    for i in range(ROUNDS):
+        if i:
+            k0 = (k0 + W0) & _MASK
+            k1 = (k1 + W1) & _MASK
+        hi0, lo0 = _mulhilo(M0, c0)
+        hi1, lo1 = _mulhilo(M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _as_int32(w: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the same bits as int32."""
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def check_stream_args(seed: int, rnd: int, frame0: int, batch: int) -> None:
+    """Seed and round are uint64, global frame indices uint32."""
+    if not (0 <= seed < 2**64 and 0 <= rnd < 2**64 and 0 <= frame0
+            and frame0 + batch <= 2**32):
+        raise ValueError("seed and round are uint64, frames uint32")
+
+
+def channel_words(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
+                  device) -> torch.Tensor:
+    """[batch, n_bits] int32: the stream's words for frames
+    ``frame0 .. frame0 + batch - 1`` of round ``rnd``."""
+    check_stream_args(seed, rnd, frame0, batch)
+    groups = -(-n_bits // 4)
+    i64 = dict(dtype=torch.int64, device=device)
+    c0 = torch.arange(groups, **i64)[None, :]
+    c1 = torch.arange(frame0, frame0 + batch, **i64)[:, None]
+    c2 = torch.full((1, 1), rnd & _MASK, **i64)
+    c3 = torch.full((1, 1), rnd >> 32, **i64)
+    c0, c1 = torch.broadcast_tensors(c0, c1)
+    w = torch.stack(philox4x32(c0, c1, c2, c3, seed & _MASK, seed >> 32),
+                    dim=-1)
+    return _as_int32(w.reshape(batch, groups * 4)[:, :n_bits])

@@ -1,0 +1,91 @@
+"""Build and load the package's CUDA kernels.
+
+The sources in ``faid_tpu_torch/csrc/`` are compiled at first use with
+``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+interface, bound with ``ctypes``.  The library lands in
+``build/faid_tpu_torch/`` at the checkout's root (``.gitignore`` lists
+``build/``), named by a hash of the sources and flags, so an edited
+source builds anew and an unchanged one loads the cached library.
+Nothing here runs at import time; a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "faid_tpu_torch"
+SOURCES = ("quantile_channel.cu", "stats_decoder.cu")
+HEADERS = ("philox.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the entry points; every pointer and the stream are
+# c_void_p so ctypes never truncates them to 32 bits.
+_SIGNATURES = {
+    "faid_quantile_channel": (
+        [_P, _P, _P, _P, _P] + [_I] * 7
+        + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
+    "faid_stats_decoder": ([_P] * 14 + [_I] * 17 + [_P], _I),
+    "faid_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libfaid_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """The compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) of the current library's build."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if it is not cached."""
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(CSRC / s) for s in SOURCES)]
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(status: int) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if status:
+        msg = library().faid_error_string(status).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} ({status})")
