@@ -5,15 +5,27 @@
 
 Builds the CUDA kernels from faid_tpu_torch/csrc, then:
   1. prints the card's name and power limit and the kernel build time;
-  2. kernel A (quantile channel) against its plain PyTorch twin, bit for
-     bit, on the full 50G-PON code at batch 2048, 3.6 and 4.0 dB;
+  2. kernel A (quantile channel + ModCalErr counts) against its plain
+     PyTorch twin, bit for bit, on the full 50G-PON code at batch 2048,
+     3.6 and 4.0 dB;
   3. kernel B (stats decoder) against its plain twin, bit for bit, on
      kernel A's 3.6 dB LLRs, and on the toy code at batch 64;
-  4. the main path, build_sim_loop at 3.6 dB, batch 2048, 8 rounds: both
-     kernels launched, noise flowed, FER z-test against the reference
+  4. the main path, build_sim_loop at 3.6 dB, batch 2048, 8 rounds: A and
+     B launched, noise flowed, FER z-test against the reference
      simulator's FAID_DTBF QPSK 3.6 dB row (docs/refcheck_fer_compare.json);
-  5. CUDA-event timings at 4.0 dB, batch 2048: each kernel beside its
-     plain twin, and the main path's decoded-info Mbit/s.
+  5. CUDA-event timings at 4.0 dB, batch 2048: the main path's
+     decoded-info Mbit/s;
+  6. kernel C (quantile channel + ModCalErr map) and kernel D (full
+     decoder) against their plain twins, bit for bit, at batch 2048 on
+     the full code and at batch 64 on the toy code; C's LLRs equal A's,
+     D's info-bit error counts equal B's;
+  7. the campaign path, `python -m faid_tpu_torch.cli` as a user calls it:
+     a 3.6/3.7 dB sweep at batch 2048 with --collect-errors (A, B, C, D
+     launched, FER z-test, frames dumped), the same command again (it
+     resumes from checkpoint.json: no kernel B launch, the same table),
+     and the replay of one error round against build_sim_step;
+  8. CUDA-event timings at 4.0 dB, batch 2048, each kernel and its plain
+     twin in turns, the replay rate, and each kernel's bound.
 Any failed phase exits non-zero before the last line, which is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch and numpy, never JAX.
@@ -25,6 +37,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -35,6 +48,39 @@ BATCH = 2048
 SEED = 20261016
 FER_ROUNDS = 8
 Z_LIMIT = 4.0
+
+# The H100 SXM's peaks (NVIDIA's data sheet, at the 700 W limit): HBM
+# bytes per second, and int32 operations per second: 64 INT32 lanes per
+# SM (Hopper white paper) x 132 SMs x the 1.98 GHz boost clock that the
+# published 67 TFLOP/s float32 rate (128 lanes, 2 per FMA) implies.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
+
+# Operation model of the functions' arithmetic, in int32 operations; it
+# counts what the function needs, not what a kernel spends on addressing:
+#   Philox4x32-10, per call: 10 rounds of 2 mul-hi, 2 mul-lo, 4 xor = 80,
+#     shared by the 4 bits the call feeds; its 9 x 2 key-schedule adds
+#     depend on the seed alone, so they count once per launch;
+#   staircase, per bit: the mask xor, 2L compares and 2L adds, the sign
+#     restore (xor, sub), the clip (min, max), the error compare = 4L + 6;
+#   row update, per edge and MP iteration (ops/cn_update.py): pass 1
+#     subtract, the clip to +-31 (max, min), sign with backtrack (select,
+#     compare), parity xor, magnitude (abs, min, table) and the min1/min2
+#     update (max, min, min) = 1 + 2 + 2 + 1 + 3 + 3 = 12 (en is within
+#     +-31 and a message within +-7, so the int8 saturation of en - msg
+#     never binds and is not counted); pass 2 compare with min1 and
+#     select, 2 sign xors, negate, add, clip (max, min) = 8;
+#   syndrome sweep: one xor per edge, and one hard decision (en > 0) per
+#     VN where en changed since the last sweep (every MP sweep, and once
+#     as the DTBF tail starts; its sweeps read the hard bits);
+#   DTBF flip, per weight-gamma bit and round: gamma vote adds, the
+#     disagreement xor, multiply-add, compare, flip xor = gamma + 4;
+#   kernel B's error count: one add per info bit.
+PHILOX_OPS = 10 * 8
+PHILOX_KEY_OPS = 9 * 2
+ROW_OPS_PER_EDGE = 12 + 8
+SYNDROME_OPS_PER_EDGE = 1
+HARD_OPS_PER_VN = 1
 
 
 def fail(msg: str):
@@ -65,6 +111,52 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def in_turns(kernel, plain, reps_kernel: int, reps_plain: int):
+    """(kernel ms, plain ms), each the mean of two timings taken in the
+    order plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, reps_plain)
+    k1 = cuda_ms(kernel, reps_kernel)
+    k2 = cuda_ms(kernel, reps_kernel)
+    p2 = cuda_ms(plain, reps_plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, what bounds it) for work that moves ``n_bytes`` and does
+    ``n_ops`` int32 operations."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def channel_ops(batch: int, n_var: int, quant_bits_l: int) -> float:
+    return (batch * n_var * (PHILOX_OPS / 4 + 4 * quant_bits_l + 6)
+            + PHILOX_KEY_OPS)
+
+
+def decoder_ops(code, n_elig_bits: int, gamma: int, max_iter: int,
+                bf_max: int, mp_iters: torch.Tensor,
+                bf_rounds: torch.Tensor) -> float:
+    """The decoder's arithmetic for this run's per-frame iteration counts:
+    each MP iteration's syndrome sweep and row updates, the sweep that
+    finds a word clean, and, where MP ran out, the hard decisions that
+    open the DTBF tail and each of its sweeps and flip rounds (a sweep
+    that finds the word clean ends the tail before its round cap)."""
+    edges = int(code.degrees_np.sum()) * code.z
+    mp = mp_iters.to(torch.float64)
+    bf = bf_rounds.to(torch.float64)
+    clean = (mp_iters < max_iter).to(torch.float64)
+    tail = (mp_iters == max_iter).to(torch.float64)
+    tail_sweeps = tail * (bf + (bf_rounds < bf_max).to(torch.float64))
+    ops = (mp * edges * ROW_OPS_PER_EDGE
+           + (mp + clean) * (edges * SYNDROME_OPS_PER_EDGE
+                             + code.n_var * HARD_OPS_PER_VN)
+           + tail * code.n_var * HARD_OPS_PER_VN
+           + tail_sweeps * edges * SYNDROME_OPS_PER_EDGE
+           + bf * n_elig_bits * (gamma + 4))
+    return float(ops.sum())
+
+
 def reference_fer() -> tuple[float, int]:
     rows = json.loads((REPO / "docs" / "refcheck_fer_compare.json").read_text())
     for r in rows["rows"]:
@@ -75,20 +167,43 @@ def reference_fer() -> tuple[float, int]:
     fail("no FAID_DTBF QPSK 3.6 dB row in docs/refcheck_fer_compare.json")
 
 
+def fer_z(error_frames: int, frames: int) -> float:
+    """Two-proportion z of an FER against the reference's 3.6 dB row."""
+    ref_fer, ref_n = reference_fer()
+    fer = error_frames / frames
+    pbar = (error_frames + ref_fer * ref_n) / (frames + ref_n)
+    z = (fer - ref_fer) / math.sqrt(pbar * (1 - pbar) * (1 / frames + 1 / ref_n))
+    print(f"FER {fer:.6f} over {frames} frames vs reference {ref_fer} over "
+          f"{ref_n}: z = {z:.3f}")
+    return z
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     try:
-        from faid_tpu_torch import build_sim_loop, load_code, sigma_for
+        from faid_tpu_torch import (build_debug_step, build_sim_loop,
+                                    build_sim_step, cli, load_code, sigma_for)
         from faid_tpu_torch.code.toy import toy_code
         from faid_tpu_torch.config import DecodeMethod, SimConfig
+        from faid_tpu_torch.decoders.core import build_decoder
         from faid_tpu_torch.ops import cuda_channel as cc
         from faid_tpu_torch.ops import cuda_decoder as cd
+        from faid_tpu_torch.ops import philox
         from faid_tpu_torch.utils import kernels
     except ImportError as e:
         fail(f"the faid_tpu_torch package is not importable here: {e}")
     check(not any(m.split(".")[0] in ("jax", "faid_tpu") for m in sys.modules),
           "JAX or faid_tpu was imported")
+    wrappers = {"A": cc.quantile_channel, "B": cd.stats_decode,
+                "C": cc.quantile_channel_map, "D": cd.full_decode}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts() -> dict:
+        return {k: w.launches for k, w in wrappers.items()}
 
     dev = torch.device("cuda:0")
     try:
@@ -104,7 +219,7 @@ def main():
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"({kernels.library_path().name})")
     for line in kernels.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Function properties" in line:
             print("  ptxas:", line.strip())
 
     code = load_code("50gpon")
@@ -113,12 +228,14 @@ def main():
                     batch_per_device=BATCH, fake_encode=True,
                     channel_backend="fused", stop_mode="group", seed=SEED)
     dcfg = cfg.decoder()
+    L = 7                                   # 4-bit quantizer: 2L+1 thresholds
     ch = dict(batch=BATCH, n_var=code.n_var, n_info=code.n_info, mod_type=2,
               quant_bits=4)
+    chm = dict(batch=BATCH, n_var=code.n_var, quant_bits=4)
 
     # ---- phase 2: kernel A vs its plain twin --------------------------------
     err_a = 0
-    llr36 = None
+    llr_a = {}
     for snr, rnd in ((3.6, 1), (4.0, 2)):
         params = cc.threshold_ints(cfg, sigma_for(cfg, snr)).to(dev)
         got = cc.quantile_channel(params, seed=SEED, rnd=rnd, **ch)
@@ -131,11 +248,11 @@ def main():
               f"max_abs_err {diff}")
         check(diff == 0, f"kernel A differs from its plain twin at {snr} dB")
         check(int(got[1].sum()) > 0, "kernel A drew no channel errors")
-        if snr == 3.6:
-            llr36 = got[0]
+        llr_a[snr] = got
     # the paths the main path does not take: a codeword mask, BPSK, the
     # asymmetric 3/5-bit clips, 6 bits, a frame offset
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    variants = []
     for mod, qb, with_cw in ((2, 4, True), (1, 3, False), (2, 5, True),
                              (2, 6, False)):
         gcfg = SimConfig(mod_type=mod, quant_bits=qb)
@@ -143,36 +260,40 @@ def main():
         cw = (torch.randint(0, 2, (64, code.n_var), generator=gen, device=dev,
                             dtype=torch.int8) if with_cw else None)
         kw = dict(seed=SEED, rnd=3, batch=64, n_var=code.n_var,
-                  n_info=code.n_info, mod_type=mod, quant_bits=qb, frame0=5,
-                  cw=cw)
-        diff = max_abs_diff(zip(cc.quantile_channel(params, **kw),
-                                cc.quantile_channel_plain(params, **kw)))
+                  quant_bits=qb, frame0=5, cw=cw)
+        variants.append((params, kw, mod, with_cw))
+        got = cc.quantile_channel(params, n_info=code.n_info, mod_type=mod, **kw)
+        want = cc.quantile_channel_plain(params, n_info=code.n_info,
+                                         mod_type=mod, **kw)
+        diff = max_abs_diff(zip(got, want))
         print(f"kernel A vs plain, mod {mod}, {qb}-bit, codeword "
               f"{'random' if with_cw else 'zero'}: max_abs_err {diff}")
         check(diff == 0, "kernel A differs from its plain twin")
         err_a = max(err_a, diff)
 
     # ---- phase 3: kernel B vs its plain twin --------------------------------
+    llr36 = llr_a[3.6][0]
     tables = cd.decoder_tables(code, dcfg, dev)
-    got = cd.stats_decode(llr36, tables)
+    got_b = cd.stats_decode(llr36, tables)
     want = cd.stats_decode_plain(llr36, code, dcfg)
     torch.cuda.synchronize()
-    err_b = max_abs_diff(zip(got, want))
+    err_b = max_abs_diff(zip(got_b, want))
     print(f"kernel B vs plain, full code 3.6 dB: frames with errors "
-          f"{int((got[0] > 0).sum())}, mp_iters {int(got[1].sum())}, "
-          f"bf_rounds {int(got[2].sum())}, max_abs_err {err_b}")
+          f"{int((got_b[0] > 0).sum())}, mp_iters {int(got_b[1].sum())}, "
+          f"bf_rounds {int(got_b[2].sum())}, max_abs_err {err_b}")
     check(err_b == 0, "kernel B differs from its plain twin on the full code")
-    check(int(got[2].sum()) > 0, "the DTBF tail was not engaged")
+    check(int(got_b[2].sum()) > 0, "the DTBF tail was not engaged")
 
     toy = toy_code()
     tcfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, mod_type=2,
                      batch_per_device=64, fake_encode=True,
                      channel_backend="fused", stop_mode="group")
+    ttables = cd.decoder_tables(toy, tcfg.decoder(), dev)
     tparams = cc.threshold_ints(tcfg, sigma_for(tcfg, 2.0)).to(dev)
-    tllr, _, _ = cc.quantile_channel(tparams, seed=SEED, rnd=0, batch=64,
-                                     n_var=toy.n_var, n_info=toy.n_info,
-                                     mod_type=2, quant_bits=4)
-    tgot = cd.stats_decode(tllr, cd.decoder_tables(toy, tcfg.decoder(), dev))
+    tch = dict(seed=SEED, rnd=0, batch=64, n_var=toy.n_var, quant_bits=4)
+    tllr, _, _ = cc.quantile_channel(tparams, n_info=toy.n_info, mod_type=2,
+                                     **tch)
+    tgot = cd.stats_decode(tllr, ttables)
     twant = cd.stats_decode_plain(tllr, toy, tcfg.decoder())
     torch.cuda.synchronize()
     terr = max_abs_diff(zip(tgot, twant))
@@ -183,57 +304,216 @@ def main():
 
     # ---- phase 4: the main path ---------------------------------------------
     loop = build_sim_loop(code, cfg, FER_ROUNDS, "cuda")   # as a user calls it
-    cc.quantile_channel.launches = 0
-    cd.stats_decode.launches = 0
+    reset_counts()
     out = loop(SEED, sigma_for(cfg, 3.6), 0)
     torch.cuda.synchronize()
-    launches_a = cc.quantile_channel.launches
-    launches_b = cd.stats_decode.launches
+    main_counts = counts()
     out = {k: v.tolist() for k, v in out.items()}
-    print("main path, 3.6 dB:", json.dumps(out))
-    check(launches_a > 0 and launches_b > 0,
-          f"main path launched kernel A {launches_a}x, kernel B {launches_b}x")
+    print("main path, 3.6 dB:", json.dumps(out), "launches", main_counts)
+    check(main_counts["A"] > 0 and main_counts["B"] > 0,
+          f"main path launched kernel A {main_counts['A']}x, kernel B "
+          f"{main_counts['B']}x")
     check(out["test_frames"] == FER_ROUNDS * BATCH, "wrong frame count")
     check(out["mod_error_bits"] > 0, "no channel noise reached the decoder")
     check(sum(out["mp_hist"]) == sum(out["bf_hist"]) == out["test_frames"],
           "histograms do not cover every frame")
-    fer = out["error_frames"] / out["test_frames"]
-    ref_fer, ref_n = reference_fer()
-    n = out["test_frames"]
-    pbar = (out["error_frames"] + ref_fer * ref_n) / (n + ref_n)
-    z = (fer - ref_fer) / math.sqrt(pbar * (1 - pbar) * (1 / n + 1 / ref_n))
-    print(f"FER {fer:.6f} over {n} frames vs reference {ref_fer} over "
-          f"{ref_n}: z = {z:.3f}")
+    z = fer_z(out["error_frames"], out["test_frames"])
     check(abs(z) <= Z_LIMIT, f"|z| = {abs(z):.2f} > {Z_LIMIT}")
 
-    # ---- phase 5: timings at 4.0 dB -----------------------------------------
-    params40 = cc.threshold_ints(cfg, sigma_for(cfg, 4.0)).to(dev)
-    ms_a = cuda_ms(lambda: cc.quantile_channel(params40, seed=SEED, rnd=9, **ch), 20)
-    plain_a = cuda_ms(lambda: cc.quantile_channel_plain(params40, seed=SEED,
-                                                        rnd=9, **ch), 3)
-    llr40, _, _ = cc.quantile_channel(params40, seed=SEED, rnd=9, **ch)
-    ms_b = cuda_ms(lambda: cd.stats_decode(llr40, tables), 10)
-    plain_b = cuda_ms(lambda: cd.stats_decode_plain(llr40, code, dcfg), 2)
+    # ---- phase 5: the main path's rate at 4.0 dB ----------------------------
     e2e_rounds = 10
     e2e = build_sim_loop(code, cfg, e2e_rounds, "cuda")
     ms_e2e = cuda_ms(lambda: e2e(SEED, sigma_for(cfg, 4.0), 100), 3)
     mbit_s = e2e_rounds * BATCH * code.n_info / (ms_e2e * 1e-3) / 1e6
-    print(f"timings at 4.0 dB, batch {BATCH} ({card}): kernel A {ms_a:.4f} ms "
-          f"(plain {plain_a:.4f} ms), kernel B {ms_b:.4f} ms (plain "
-          f"{plain_b:.4f} ms), main path {ms_e2e / e2e_rounds:.4f} ms/round = "
-          f"{mbit_s:.1f} Mbit/s decoded info")
+    print(f"main path at 4.0 dB, batch {BATCH} ({card}): "
+          f"{ms_e2e / e2e_rounds:.4f} ms/round = {mbit_s:.1f} Mbit/s "
+          f"decoded info")
+
+    # ---- phase 6: kernels C and D vs their plain twins ----------------------
+    err_c = 0
+    llr_c = {}
+    for snr, rnd in ((3.6, 1), (4.0, 2)):
+        params = cc.threshold_ints(cfg, sigma_for(cfg, snr)).to(dev)
+        got = cc.quantile_channel_map(params, seed=SEED, rnd=rnd, **chm)
+        want = cc.quantile_channel_map_plain(params, seed=SEED, rnd=rnd, **chm)
+        torch.cuda.synchronize()
+        diff = max_abs_diff(zip(got, want))
+        same_a = max_abs_diff([(got[0], llr_a[snr][0])])
+        info_bits = int(got[1][:, :code.n_info].sum())
+        print(f"kernel C vs plain, {snr} dB: llr and mod_err "
+              f"{tuple(got[1].shape)}, max_abs_err {diff}; llr vs kernel A "
+              f"max_abs_err {same_a}; info-bit map sum {info_bits} vs A's "
+              f"{int(llr_a[snr][1].sum())}")
+        check(diff == 0, f"kernel C differs from its plain twin at {snr} dB")
+        check(same_a == 0, f"kernel C's LLRs differ from kernel A's at {snr} dB")
+        check(info_bits == int(llr_a[snr][1].sum()),
+              "kernel C's map disagrees with kernel A's counts")
+        err_c = max(err_c, diff)
+        llr_c[snr] = got[0]
+    for params, kw, mod, with_cw in variants:
+        diff = max_abs_diff(zip(cc.quantile_channel_map(params, **kw),
+                                cc.quantile_channel_map_plain(params, **kw)))
+        print(f"kernel C vs plain, mod {mod}, {kw['quant_bits']}-bit, codeword "
+              f"{'random' if with_cw else 'zero'}: max_abs_err {diff}")
+        check(diff == 0, "kernel C differs from its plain twin")
+        err_c = max(err_c, diff)
+
+    got_d = cd.full_decode(llr_c[3.6], tables)
+    plain_dec = build_decoder(code, dcfg, backend="plain")
+    want = plain_dec(llr_c[3.6])
+    torch.cuda.synchronize()
+    err_d = max_abs_diff(zip(got_d, (want["hard"], want["mp_iters"],
+                                     want["bf_rounds"])))
+    d_err_bits = got_d[0][:, :code.n_info].sum(dim=1, dtype=torch.int32)
+    vs_b = max_abs_diff([(d_err_bits, got_b[0])] + list(zip(got_d[1:], got_b[1:])))
+    print(f"kernel D vs plain, full code 3.6 dB: hard {tuple(got_d[0].shape)}, "
+          f"mp_iters {int(got_d[1].sum())}, bf_rounds {int(got_d[2].sum())}, "
+          f"max_abs_err {err_d}; info-bit errors and counts vs kernel B "
+          f"max_abs_err {vs_b}")
+    check(err_d == 0, "kernel D differs from its plain twin on the full code")
+    check(int(got_d[2].sum()) > 0, "kernel D's DTBF tail was not engaged")
+    check(vs_b == 0, "kernel D's error counts differ from kernel B's")
+
+    tllr_c, tmap = cc.quantile_channel_map(tparams, **tch)
+    tdiff = max_abs_diff(zip((tllr_c, tmap),
+                             cc.quantile_channel_map_plain(tparams, **tch)))
+    tdiff = max(tdiff, max_abs_diff([(tllr_c, tllr)]))
+    tgot = cd.full_decode(tllr_c, ttables)
+    tw = build_decoder(toy, tcfg.decoder(), backend="plain")(tllr_c)
+    terr = max_abs_diff(zip(tgot, (tw["hard"], tw["mp_iters"], tw["bf_rounds"])))
+    print(f"kernels C and D vs plain, toy code batch 64: C max_abs_err "
+          f"{tdiff}, D bf_rounds {int(tgot[2].sum())} max_abs_err {terr}")
+    check(tdiff == 0 and terr == 0, "kernel C or D differs on the toy code")
+    err_c, err_d = max(err_c, tdiff), max(err_d, terr)
+
+    # ---- phase 7: the campaign path -----------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        outdir = Path(tmp) / "campaign"
+        argv = ["--method", "2", "--fake-encode", "--channel-backend", "fused",
+                "--stop-mode", "group", "--batch", str(BATCH),
+                "--snr-start", "3.6", "--snr-pass", "0.1", "--snr-end", "3.8",
+                "--min-frames", str(FER_ROUNDS * BATCH), "--seed", str(SEED),
+                "--collect-errors", "--quiet", "--out", str(outdir)]
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        cli_counts = counts()
+        check(rc == 0, f"the CLI returned {rc}")
+        print(f"CLI sweep 3.6-3.7 dB: {sweep_s:.3f} s wall, launches "
+              f"{cli_counts}")
+        check(all(v > 0 for v in cli_counts.values()),
+              f"the campaign path did not launch every kernel: {cli_counts}")
+        table = (outdir / "Result.txt").read_text().splitlines()
+        print("\n".join("  " + r for r in table))
+        rows = [r.split() for r in table[1:]]
+        check([r[0] for r in rows] == ["3.60", "3.70"],
+              f"Result.txt rows are {[r[0] for r in rows]}")
+        check(all(int(r[1]) >= FER_ROUNDS * BATCH for r in rows),
+              "too few frames per point")
+        ck = json.loads((outdir / "checkpoint.json").read_text())
+        res36 = ck["results"][0]
+        c36 = res36["counters"]
+        check(c36 == out, "the CLI's 3.6 dB counters differ from the main "
+                          "path's for the same seed and stream rounds")
+        z = fer_z(c36["error_frames"], c36["test_frames"])
+        check(abs(z) <= Z_LIMIT, f"CLI |z| = {abs(z):.2f} > {Z_LIMIT}")
+        dumped = (outdir / "errorindex.txt").read_text().splitlines()
+        print(f"dumped frames: {len(dumped)}; first: {dumped[0][:100] if dumped else ''}")
+        check(len(dumped) >= 1, "no failing frame was dumped")
+        sweep_seconds = [r["seconds"] for r in ck["results"]]
+
+        reset_counts()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        resume_counts = counts()
+        check(rc == 0, f"the resumed CLI returned {rc}")
+        table2 = (outdir / "Result.txt").read_text().splitlines()
+        print(f"CLI rerun: launches {resume_counts}")
+        check(resume_counts["B"] == 0 and resume_counts["A"] == 0,
+              "the rerun did not resume from checkpoint.json")
+        check([r.split()[:7] for r in table2] == [r.split()[:7] for r in table],
+              "the resumed Result.txt differs")
+
+    r0 = res36["err_chunks"][0][0]
+    sr = philox.stream_round(0, r0)
+    sigma36 = sigma_for(cfg, 3.6)
+    debug = build_debug_step(code, cfg, "cuda")
+    a = build_sim_step(code, cfg, "cuda")(SEED, sr, sigma36)
+    b = debug(SEED, sr, sigma36)
+    eb, ef = int(b["err_bits"].sum()), int((b["err_bits"] > 0).sum())
+    print(f"replay of round {r0} at 3.6 dB: step error_bits "
+          f"{int(a['error_bits'])} frames {int(a['error_frames'])}, debug "
+          f"{eb} / {ef}")
+    check(int(a["error_bits"]) == eb and int(a["error_frames"]) == ef > 0,
+          "the replay's error counts differ from the step's")
+
+    # ---- phase 8: timings at 4.0 dB and bounds ------------------------------
+    sigma40 = sigma_for(cfg, 4.0)
+    params40 = cc.threshold_ints(cfg, sigma40).to(dev)
+    ms_a, plain_a = in_turns(
+        lambda: cc.quantile_channel(params40, seed=SEED, rnd=9, **ch),
+        lambda: cc.quantile_channel_plain(params40, seed=SEED, rnd=9, **ch),
+        20, 3)
+    ms_c, plain_c = in_turns(
+        lambda: cc.quantile_channel_map(params40, seed=SEED, rnd=9, **chm),
+        lambda: cc.quantile_channel_map_plain(params40, seed=SEED, rnd=9, **chm),
+        20, 3)
+    llr40, _, _ = cc.quantile_channel(params40, seed=SEED, rnd=9, **ch)
+    ms_b, plain_b = in_turns(lambda: cd.stats_decode(llr40, tables),
+                             lambda: cd.stats_decode_plain(llr40, code, dcfg),
+                             10, 2)
+    ms_d, plain_d = in_turns(lambda: cd.full_decode(llr40, tables),
+                             lambda: plain_dec(llr40), 10, 2)
+    replay_ms = cuda_ms(lambda: debug(SEED, philox.stream_round(1, 0), sigma40), 5)
+    print(f"timings at 4.0 dB, batch {BATCH} ({card}), kernel vs plain twin "
+          f"in turns: A {ms_a:.4f} ms (plain {plain_a:.4f}), C {ms_c:.4f} ms "
+          f"(plain {plain_c:.4f}), B {ms_b:.4f} ms (plain {plain_b:.4f}), "
+          f"D {ms_d:.4f} ms (plain {plain_d:.4f}); replay "
+          f"{replay_ms:.4f} ms/round = {BATCH / (replay_ms * 1e-3):.1f} "
+          f"frames/s; sweep {sweep_s:.3f} s wall, points "
+          f"{[round(s, 3) for s in sweep_seconds]} s")
+
+    _, iters40, rounds40 = cd.stats_decode(llr40, tables)
+    n_elig_bits = int(tables.elig_col.numel()) * code.z
+    dec_ops = decoder_ops(code, n_elig_bits, dcfg.bf.gamma, dcfg.max_iter,
+                          dcfg.bf.max_iter, iters40, rounds40)
+    nbytes = BATCH * code.n_var
+    bounds = {
+        "A": bound(nbytes + 2 * 4 * BATCH, channel_ops(BATCH, code.n_var, L)),
+        "C": bound(2 * nbytes, channel_ops(BATCH, code.n_var, L)),
+        "B": bound(nbytes + 3 * 4 * BATCH, dec_ops + BATCH * code.n_info),
+        "D": bound(2 * nbytes + 2 * 4 * BATCH, dec_ops),
+    }
+    times = {"A": ms_a, "B": ms_b, "C": ms_c, "D": ms_d}
+    print(f"bounds at 4.0 dB (decoder work: mp_iters {int(iters40.sum())}, "
+          f"bf_rounds {int(rounds40.sum())}, {dec_ops:.4g} int32 ops), share "
+          f"= bound / time: " + ", ".join(
+              f"{k} {v[0]:.4f} ms by {v[1]} ({v[0] / times[k]:.1%})"
+              for k, v in bounds.items()))
+
+    def entry(name, key, source, replaces, launches, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                "library_ms": None}
 
     print(json.dumps({"kernels": [
-        {"name": "quantile_channel", "route": "cuda",
-         "source": "faid_tpu_torch/csrc/quantile_channel.cu",
-         "replaces": "faid_tpu/ops/pallas_channel.py:515",
-         "launches": launches_a, "max_abs_err": err_a,
-         "ms": ms_a, "plain_ms": plain_a},
-        {"name": "stats_decoder", "route": "cuda",
-         "source": "faid_tpu_torch/csrc/stats_decoder.cu",
-         "replaces": "faid_tpu/ops/pallas_decoder.py:875",
-         "launches": launches_b, "max_abs_err": err_b,
-         "ms": ms_b, "plain_ms": plain_b},
+        entry("quantile_channel", "A", "faid_tpu_torch/csrc/quantile_channel.cu",
+              "faid_tpu/ops/pallas_channel.py:515", main_counts["A"], err_a,
+              ms_a, plain_a),
+        entry("stats_decoder", "B", "faid_tpu_torch/csrc/stats_decoder.cu",
+              "faid_tpu/ops/pallas_decoder.py:875", main_counts["B"], err_b,
+              ms_b, plain_b),
+        entry("quantile_channel_map", "C",
+              "faid_tpu_torch/csrc/quantile_channel.cu",
+              "faid_tpu/ops/pallas_channel.py:474", cli_counts["C"], err_c,
+              ms_c, plain_c),
+        entry("full_decoder", "D", "faid_tpu_torch/csrc/stats_decoder.cu",
+              "faid_tpu/ops/pallas_decoder.py:797", cli_counts["D"], err_d,
+              ms_d, plain_d),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,22 +2,35 @@
 LDPC Monte-Carlo simulator, for NVIDIA Hopper (H100).
 
 It mirrors ``faid_tpu``'s layout and module names.  Plain tensor code is
-PyTorch; each TPU kernel on the ported path is a hand-written CUDA
-kernel in ``csrc/`` (ops/cuda_channel.py, ops/cuda_decoder.py), built
-with nvcc at first use.  It imports torch and numpy, never JAX.
+PyTorch; each TPU kernel on the ported paths is a hand-written CUDA
+kernel in ``csrc/``, built with nvcc at first use:
+
+  A  quantile channel + ModCalErr counts   ops/cuda_channel.py  (sweep)
+  B  stats decoder                         ops/cuda_decoder.py  (sweep)
+  C  quantile channel + ModCalErr map      ops/cuda_channel.py  (replay)
+  D  full decoder (hard decisions)         ops/cuda_decoder.py  (replay)
+
+It imports torch and numpy, never JAX.  Entry points run on ``cuda``
+unless the caller asks for the CPU, where each kernel's plain twin runs.
 
 Public API:
     load_code()                      the 50G-PON QC-LDPC code object
     SimConfig / DecoderConfig        typed configuration
     build_sim_step / build_sim_loop  one Monte-Carlo round / many, on a device
+    build_debug_step                 the exact replay of one round's frames
+    MonteCarloRunner                 the SNR sweep with checkpoint/resume,
+                                     result tables and error-frame dumps
+                                     (command line: python -m faid_tpu_torch.cli)
 """
 
 from .code.qc_matrix import QCCode, load_code
 from .config import BFConfig, DecodeMethod, DecoderConfig, FaidLutFamily, SimConfig
-from .sim.pipeline import build_sim_loop, build_sim_step, sigma_for
+from .sim.pipeline import build_debug_step, build_sim_loop, build_sim_step, sigma_for
+from .sim.runner import MonteCarloRunner
 
 __all__ = [
     "QCCode", "load_code",
     "BFConfig", "DecodeMethod", "DecoderConfig", "FaidLutFamily", "SimConfig",
-    "build_sim_loop", "build_sim_step", "sigma_for",
+    "build_debug_step", "build_sim_loop", "build_sim_step", "sigma_for",
+    "MonteCarloRunner",
 ]

@@ -1,11 +1,18 @@
-// Kernel B: the stats decoder for FAID (EF 0) + DTBF in group stop mode.
+// Kernels B and D: the decoder for FAID (EF 0) + DTBF in group stop mode.
 //
-// Replaces faid_tpu/ops/pallas_decoder.py `make_stats_decoder`, i.e.
-// `_make_kernel(fuse_bf=True, fuse_stats=True, fake_ref=True)`: LLR
+// Kernel B replaces faid_tpu/ops/pallas_decoder.py `make_stats_decoder`,
+// i.e. `_make_kernel(fuse_bf=True, fuse_stats=True, fake_ref=True)`: LLR
 // ingest, up to max_iter layered FAID iterations each opened by the
 // early-stop syndrome sweep (`syndrome_sweep`, `row_update`), the DTBF
 // tail (`bf_tail`), and the per-frame count of info-bit errors against
 // the all-zero word.  Outputs err_bits, mp_iters and bf_rounds, [B] int32.
+//
+// Kernel D replaces `make_full_decoder`, i.e. `_make_kernel(fuse_bf=True)`:
+// the same body, one template over `kEmitHard`, that writes the word's
+// final hard decisions instead of counting errors: the DTBF tail's bits,
+// or en > 0 where MP stopped clean.  Outputs hard [B, n_var] int8 (0/1),
+// mp_iters and bf_rounds [B] int32.  The JAX kernel's [C, B, Z] becomes
+// build_decoder's [B, n_var] layout.
 //
 // What bounds it on the H100: bytes.  An MP iteration touches every edge
 // twice: it reads en and the message (2 bytes) and writes both back (2
@@ -124,8 +131,9 @@ __device__ void row_update(int8_t* en, int8_t* msg, const int* s_lut, int r,
   }
 }
 
+template <bool kEmitHard>
 __global__ void __launch_bounds__(kThreads, 1)
-stats_decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ en_g,
+decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ en_g,
                      int8_t* __restrict__ msg_g, int8_t* __restrict__ hard_g,
                      int32_t* __restrict__ err_out, int32_t* __restrict__ iters_out,
                      int32_t* __restrict__ bf_out, CodeArgs a) {
@@ -236,52 +244,79 @@ stats_decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ en_g,
     }
   }
 
-  // ---- per-frame info-bit errors against the all-zero word
-  if (threadIdx.x < kGroup) s_err[threadIdx.x] = 0;
-  __syncthreads();
-  for (int f = 0; f < kGroup; ++f) {
-    const int8_t* src = (alive ? hard : en) + static_cast<size_t>(f) * n;
-    int cnt = 0;
-    for (int v = threadIdx.x; v < a.n_info; v += blockDim.x) cnt += src[v] > 0;
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&s_err[f], cnt);
+  if constexpr (kEmitHard) {
+    // ---- the word's final hard decisions; `hard` is the output buffer
+    if (!alive)
+      for (int i = threadIdx.x; i < kGroup * n; i += blockDim.x) hard[i] = en[i] > 0;
+  } else {
+    // ---- per-frame info-bit errors against the all-zero word
+    if (threadIdx.x < kGroup) s_err[threadIdx.x] = 0;
+    __syncthreads();
+    for (int f = 0; f < kGroup; ++f) {
+      const int8_t* src = (alive ? hard : en) + static_cast<size_t>(f) * n;
+      int cnt = 0;
+      for (int v = threadIdx.x; v < a.n_info; v += blockDim.x) cnt += src[v] > 0;
+      cnt = __reduce_add_sync(0xffffffffu, cnt);
+      if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&s_err[f], cnt);
+    }
+    __syncthreads();
+    if (threadIdx.x < kGroup) err_out[frame0 + threadIdx.x] = s_err[threadIdx.x];
   }
-  __syncthreads();
   if (threadIdx.x < kGroup) {
-    err_out[frame0 + threadIdx.x] = s_err[threadIdx.x];
     iters_out[frame0 + threadIdx.x] = iters;
     bf_out[frame0 + threadIdx.x] = rounds;
   }
 }
 
-}  // namespace
-
-extern "C" int faid_stats_decoder(
-    const void* llr, void* en, void* msg, void* hard, void* err_bits, void* mp_iters,
-    void* bf_rounds, const void* row_ptr, const void* ent_col, const void* ent_shift,
-    const void* elig_col, const void* elig_row, const void* elig_shift, const void* lut,
-    int batch, int n_var, int n_info, int z, int n_rows, int n_entries, int punct_start,
-    int max_iter, int n_elig, int gamma, int bf_max_iter, int delta, int l0_max,
-    int l1_max, int alpha, int offset, int sign_backtrack, void* stream) {
-  const CodeArgs a{static_cast<const int32_t*>(row_ptr),
-                   static_cast<const int32_t*>(ent_col),
-                   static_cast<const int32_t*>(ent_shift),
-                   static_cast<const int32_t*>(elig_col),
-                   static_cast<const int32_t*>(elig_row),
-                   static_cast<const int32_t*>(elig_shift),
-                   static_cast<const int32_t*>(lut),
-                   n_var, n_info, z, n_rows, n_entries, punct_start, max_iter, n_elig,
-                   gamma, bf_max_iter, delta, l0_max, l1_max, alpha, offset,
-                   sign_backtrack};
-  const int smem = kGroup * n_rows * z;
+template <bool kEmitHard>
+int launch(const void* llr, void* en, void* msg, void* hard, void* err_bits,
+           void* mp_iters, void* bf_rounds, const CodeArgs& a, int batch, void* stream) {
+  const int smem = kGroup * a.n_rows * a.z;
   cudaError_t st = cudaFuncSetAttribute(
-      stats_decoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decoder_kernel<kEmitHard>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (st != cudaSuccess) return static_cast<int>(st);
-  stats_decoder_kernel<<<batch / kGroup, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  decoder_kernel<kEmitHard><<<batch / kGroup, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(llr), static_cast<int8_t*>(en),
       static_cast<int8_t*>(msg), static_cast<int8_t*>(hard),
       static_cast<int32_t*>(err_bits), static_cast<int32_t*>(mp_iters),
       static_cast<int32_t*>(bf_rounds), a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The code tables and decoder parameters, in the order both entry
+// points take them after their buffers.
+#define FAID_CODE_PARAMS                                                              \
+  const void *row_ptr, const void *ent_col, const void *ent_shift,                    \
+      const void *elig_col, const void *elig_row, const void *elig_shift,             \
+      const void *lut, int batch, int n_var, int n_info, int z, int n_rows,           \
+      int n_entries, int punct_start, int max_iter, int n_elig, int gamma,            \
+      int bf_max_iter, int delta, int l0_max, int l1_max, int alpha, int offset,      \
+      int sign_backtrack, void *stream
+#define FAID_CODE_ARGS                                                                \
+  CodeArgs {                                                                          \
+    static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(ent_col),       \
+        static_cast<const int32_t*>(ent_shift), static_cast<const int32_t*>(elig_col), \
+        static_cast<const int32_t*>(elig_row),                                        \
+        static_cast<const int32_t*>(elig_shift), static_cast<const int32_t*>(lut),    \
+        n_var, n_info, z, n_rows, n_entries, punct_start, max_iter, n_elig, gamma,    \
+        bf_max_iter, delta, l0_max, l1_max, alpha, offset, sign_backtrack             \
+  }
+
+// Kernel B.  en, msg and hard are scratch of [B, n_var], [B, n_entries,
+// z] and [B, n_var] int8.
+extern "C" int faid_stats_decoder(const void* llr, void* en, void* msg, void* hard,
+                                  void* err_bits, void* mp_iters, void* bf_rounds,
+                                  FAID_CODE_PARAMS) {
+  return launch<false>(llr, en, msg, hard, err_bits, mp_iters, bf_rounds,
+                       FAID_CODE_ARGS, batch, stream);
+}
+
+// Kernel D.  en and msg are scratch as for kernel B; hard is the output.
+extern "C" int faid_full_decoder(const void* llr, void* en, void* msg, void* hard,
+                                 void* mp_iters, void* bf_rounds, FAID_CODE_PARAMS) {
+  return launch<true>(llr, en, msg, hard, nullptr, mp_iters, bf_rounds, FAID_CODE_ARGS,
+                      batch, stream);
 }

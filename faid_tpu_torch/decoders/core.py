@@ -1,15 +1,20 @@
 """Decoder assembly: LLR ingest -> layered MP iterations -> DTBF
 (``faid_tpu.decoders.core``).
 
-``build_decoder`` is the plain PyTorch path, the counterpart of the JAX
-package's xla backend: it runs wherever its input tensor lies.
-``build_stats_decoder`` is the Monte-Carlo hot path: on a CUDA tensor it
-launches the hand-written stats decoder kernel (ops/cuda_decoder.py); on
-a CPU tensor it takes that kernel's plain twin, which is this module's
-``build_decoder`` plus the info-bit error count.
+``build_decoder`` returns hard decisions and iteration counts.  Its
+``backend`` is the JAX function's: ``"plain"`` runs the plain PyTorch
+path (the counterpart of the JAX package's xla backend) wherever its
+input tensor lies; ``"auto"`` launches the full decoder kernel, kernel D
+(ops/cuda_decoder.py ``full_decode``), on a CUDA tensor and runs the
+plain path on a CPU tensor; the plain twins of kernels B and D call it
+with ``"plain"``.  ``build_stats_decoder`` is the Monte-Carlo hot path:
+on a CUDA tensor it launches the stats decoder kernel, kernel B; on a
+CPU tensor it takes that kernel's plain twin, the plain ``build_decoder``
+plus the info-bit error count.
 
 Ported so far: FAID with EF 0 and the DTBF post-processor (method 2,
-any FAID3/FAID32/FAID2 table), both stop modes on the plain path.
+any FAID3/FAID32/FAID2 table), both stop modes on the plain path, group
+stop mode in the kernels.
 """
 
 from __future__ import annotations
@@ -33,13 +38,21 @@ def _style_for(method: DecodeMethod) -> str:
     return "faid"
 
 
+BACKENDS = ("auto", "plain")
+
+
 def check_ported(dcfg: DecoderConfig) -> None:
     """Raise NotImplementedError for a configuration outside this slice."""
     if (_style_for(dcfg.method) != "faid" or dcfg.ef_elimination != 0
             or dcfg.bf.kind != "dtbf" or not dcfg.stop_early
             or dcfg.stop_mode not in ("frame", "group")):
         raise NotImplementedError(
-            f"only FAID / EF 0 / DTBF is ported so far, got {dcfg}")
+            f"only FAID / EF 0 / DTBF (method 2) is ported so far, got {dcfg}")
+
+
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 
 
 def ingest_llrs(llr: torch.Tensor, code: QCCode) -> torch.Tensor:
@@ -51,11 +64,35 @@ def ingest_llrs(llr: torch.Tensor, code: QCCode) -> torch.Tensor:
     return en.reshape(llr.shape[0], code.n_block_cols, code.z)
 
 
-def build_decoder(code: QCCode, dcfg: DecoderConfig):
+def build_decoder(code: QCCode, dcfg: DecoderConfig, backend: str = "auto"):
     """Returns decode(llr [batch, n_var] int8) -> dict(hard [batch, n_var]
     bool, mp_iters [batch] int32, bf_rounds [batch] int32), computed on
-    ``llr``'s device with plain tensor operations."""
+    ``llr``'s device: by kernel D for a CUDA ``llr`` under ``"auto"``,
+    else with plain tensor operations."""
     check_ported(dcfg)
+    check_backend(backend)
+    plain = _build_plain_decoder(code, dcfg)
+    if backend == "plain":
+        return plain
+    from ..ops import cuda_decoder
+
+    tables = {}     # per device, built at the first call there
+
+    def decode(llr: torch.Tensor) -> dict:
+        if llr.device.type == "cpu":
+            return plain(llr)
+        if llr.device not in tables:
+            tables[llr.device] = cuda_decoder.decoder_tables(code, dcfg,
+                                                             llr.device)
+        hard, mp_iters, bf_rounds = cuda_decoder.full_decode(
+            llr, tables[llr.device])
+        return {"hard": hard.view(torch.bool), "mp_iters": mp_iters,
+                "bf_rounds": bf_rounds}
+
+    return decode
+
+
+def _build_plain_decoder(code: QCCode, dcfg: DecoderConfig):
     entry_offsets = np.concatenate([[0], np.cumsum(code.degrees_np)])
     n_entries = int(entry_offsets[-1])
     group = dcfg.stop_mode == "group"

@@ -14,11 +14,20 @@ mirrors the grid (``ix ^ -1``) and negates the output.  The output law
 is the float chain's marginal up to the 2^-32 grid and the float32
 normal CDF of the thresholds.
 
-The words come from the Philox stream of ops/philox.py.  On a CUDA
-tensor ``quantile_channel`` launches kernel A (csrc/quantile_channel.cu);
-on a CPU tensor it takes the plain twin, ``quantile_channel_plain``.
-Both give the same LLRs and counts bit for bit.  The punctured tail is
-left to the decoder's ingest, as in the JAX package.
+The words come from the Philox stream of ops/philox.py.  Two variants:
+
+  quantile_channel      LLRs + per-frame ModCalErr counts: kernel A, the
+                        Monte-Carlo sweep's channel
+  quantile_channel_map  LLRs + the ModCalErr map [B, n]: kernel C, the
+                        forensic replay's channel
+
+On a CUDA tensor each launches its kernel (csrc/quantile_channel.cu); on
+a CPU tensor it takes its plain twin (``*_plain``), which gives the same
+outputs bit for bit.  Replay contract: for the same (seed, rnd, frame0)
+kernel C's LLRs equal kernel A's bit for bit, because both run the same
+device code (csrc/staircase.cuh) on the same stream words, and both
+twins run ``staircase`` on ``philox.channel_words``.  The punctured tail
+is left to the decoder's ingest, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -104,18 +113,15 @@ def mod_stats(err: torch.Tensor, n_info: int, mod_type: int):
     return bits, syms.sum(dim=1, dtype=torch.int32)
 
 
-def _check_args(params, batch, n_var, n_info, mod_type, quant_bits, cw):
-    if mod_type not in (1, 2) or quant_bits not in _QUANT_LIMITS:
+def _check_args(params, batch, n_var, quant_bits, cw):
+    if quant_bits not in _QUANT_LIMITS:
         raise NotImplementedError(
-            f"quantile channel: mod_type {mod_type} / {quant_bits}-bit is "
-            f"not ported (BPSK/QPSK, 2-6 bits)")
+            f"quantile channel: {quant_bits}-bit is not ported (2-6 bits)")
     lo, hi = _QUANT_LIMITS[quant_bits]
     if (params.dtype != torch.int32 or params.dim() != 1
             or params.numel() != 2 * max(hi, -lo) + 1
             or not params.is_contiguous()):
         raise ValueError("params must be a contiguous int32 [2L+1] tensor")
-    if not 0 < n_info <= n_var:
-        raise ValueError(f"n_info={n_info} outside (0, n_var={n_var}]")
     if cw is not None and (cw.dtype != torch.int8 or cw.shape != (batch, n_var)
                            or cw.device != params.device
                            or not cw.is_contiguous()):
@@ -123,15 +129,80 @@ def _check_args(params, batch, n_var, n_info, mod_type, quant_bits, cw):
                          "on the params' device")
 
 
+def _check_stats_args(n_var, n_info, mod_type):
+    if mod_type not in (1, 2):
+        raise NotImplementedError(
+            f"quantile channel: mod_type {mod_type} is not ported (BPSK/QPSK)")
+    if not 0 < n_info <= n_var:
+        raise ValueError(f"n_info={n_info} outside (0, n_var={n_var}]")
+
+
+def _kernel_device(params):
+    """The device whose kernel to launch; None for the plain twin."""
+    if params.device.type == "cpu":
+        return None
+    if params.device.type != "cuda":
+        raise ValueError(f"no quantile channel for device {params.device}")
+    return params.device
+
+
+def quantile_channel_map_plain(params, *, seed: int, rnd: int, batch: int,
+                               n_var: int, quant_bits: int, frame0: int = 0,
+                               cw=None):
+    """Plain PyTorch twin of kernel C on ``params``' device."""
+    _check_args(params, batch, n_var, quant_bits, cw)
+    ix = philox.channel_words(seed, rnd, frame0, batch, n_var, params.device)
+    mask = (torch.zeros_like(ix) if cw is None
+            else -(cw != 0).to(torch.int32))
+    return staircase(ix, mask, params, quant_bits)
+
+
+def quantile_channel_map(params, *, seed: int, rnd: int, batch: int,
+                         n_var: int, quant_bits: int, frame0: int = 0,
+                         cw=None):
+    """Frames ``frame0 ..`` of round ``rnd`` through the quantile channel,
+    with the ModCalErr map: the replay's channel.
+
+    Arguments as for ``quantile_channel``.  Returns (llr [batch, n_var]
+    int8, mod_err [batch, n_var] int8), ``mod_err`` 1 where the
+    pre-decoder hard decision differs from the sent bit.  ``llr`` equals
+    ``quantile_channel``'s bit for bit for the same (seed, rnd, frame0).
+    A CPU ``params`` takes the plain twin; a CUDA one launches kernel C."""
+    dev = _kernel_device(params)
+    if dev is None:
+        return quantile_channel_map_plain(
+            params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
+            quant_bits=quant_bits, frame0=frame0, cw=cw)
+    _check_args(params, batch, n_var, quant_bits, cw)
+    philox.check_stream_args(seed, rnd, frame0, batch)
+    from ..utils import kernels
+
+    lib = kernels.library()
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    llr = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
+    err = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.faid_quantile_channel_map(
+            None if cw is None else cw.data_ptr(), llr.data_ptr(),
+            err.data_ptr(), params.data_ptr(), batch, n_var, max(hi, -lo),
+            lo, hi, seed, rnd, frame0, stream)
+    quantile_channel_map.launches += 1
+    kernels.check(status)
+    return llr, err
+
+
+quantile_channel_map.launches = 0
+
+
 def quantile_channel_plain(params, *, seed: int, rnd: int, batch: int,
                            n_var: int, n_info: int, mod_type: int,
                            quant_bits: int, frame0: int = 0, cw=None):
     """Plain PyTorch twin of kernel A on ``params``' device."""
-    _check_args(params, batch, n_var, n_info, mod_type, quant_bits, cw)
-    ix = philox.channel_words(seed, rnd, frame0, batch, n_var, params.device)
-    mask = (torch.zeros_like(ix) if cw is None
-            else -(cw != 0).to(torch.int32))
-    llr, err = staircase(ix, mask, params, quant_bits)
+    _check_stats_args(n_var, n_info, mod_type)
+    llr, err = quantile_channel_map_plain(
+        params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
+        quant_bits=quant_bits, frame0=frame0, cw=cw)
     bits, syms = mod_stats(err, n_info, mod_type)
     return llr, bits, syms
 
@@ -146,20 +217,19 @@ def quantile_channel(params, *, seed: int, rnd: int, batch: int, n_var: int,
     (llr [batch, n_var] int8, mod_error_bits [batch] int32,
     mod_error_symbols [batch] int32).  A CPU ``params`` takes the plain
     twin; a CUDA one launches kernel A."""
-    if params.device.type == "cpu":
+    dev = _kernel_device(params)
+    if dev is None:
         return quantile_channel_plain(
             params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
             n_info=n_info, mod_type=mod_type, quant_bits=quant_bits,
             frame0=frame0, cw=cw)
-    if params.device.type != "cuda":
-        raise ValueError(f"no quantile channel for device {params.device}")
-    _check_args(params, batch, n_var, n_info, mod_type, quant_bits, cw)
+    _check_stats_args(n_var, n_info, mod_type)
+    _check_args(params, batch, n_var, quant_bits, cw)
     philox.check_stream_args(seed, rnd, frame0, batch)
     from ..utils import kernels
 
     lib = kernels.library()
     lo, hi = _QUANT_LIMITS[quant_bits]
-    dev = params.device
     llr = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
     bits = torch.empty(batch, dtype=torch.int32, device=dev)
     syms = torch.empty(batch, dtype=torch.int32, device=dev)

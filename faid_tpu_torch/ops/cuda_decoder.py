@@ -1,15 +1,23 @@
-"""Stats decoder: MP + DTBF + per-frame info-bit error count
-(``faid_tpu.ops.pallas_decoder.make_stats_decoder``).
+"""The decoder kernels: MP + DTBF for FAID with EF 0
+(``faid_tpu.ops.pallas_decoder``).
 
-``stats_decode`` launches kernel B (csrc/stats_decoder.cu) on a CUDA
-tensor and takes the plain twin, ``stats_decode_plain``, on a CPU
-tensor.  The twin is the composition of the plain modules
-(decoders/core.py ``build_decoder``: syndrome, row updates, DTBF) plus
-the error count; the two agree bit for bit.
+  stats_decode  per-frame info-bit error count, mp_iters, bf_rounds:
+                kernel B (``make_stats_decoder``), the Monte-Carlo sweep's
+                decoder
+  full_decode   hard decisions [B, n_var], mp_iters, bf_rounds: kernel D
+                (``make_full_decoder``), build_decoder's kernel path and
+                the forensic replay's decoder
 
-The kernel covers FAID with EF 0 + DTBF in group stop mode, the
-all-zero reference word, and codes of row degree <= ``MAX_DEG``; other
-configurations raise before any launch.
+Both kernels are one template in csrc/stats_decoder.cu.  Each wrapper
+launches its kernel on a CUDA tensor and takes its plain twin
+(``*_plain``) on a CPU tensor.  The twins are the composition of the
+plain modules (decoders/core.py ``build_decoder(backend="plain")``:
+syndrome, row updates, DTBF), plus the error count for B; each agrees
+with its kernel bit for bit.
+
+The kernels cover FAID with EF 0 + DTBF in group stop mode and codes of
+row degree <= ``MAX_DEG``; kernel B also only the all-zero reference
+word.  Other configurations raise before any launch.
 """
 
 from __future__ import annotations
@@ -84,29 +92,30 @@ def stats_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
     (err_bits, mp_iters, bf_rounds), each [batch] int32."""
     from ..decoders.core import build_decoder
 
-    out = build_decoder(code, dcfg)(llr)
+    out = build_decoder(code, dcfg, backend="plain")(llr)
     err = out["hard"][:, :code.n_info].sum(dim=1, dtype=torch.int32)
     return err, out["mp_iters"], out["bf_rounds"]
 
 
-def stats_decode(llr: torch.Tensor, tables: DecoderTables):
-    """Decode ``llr`` [batch, n_var] int8 against the all-zero word:
-    (err_bits, mp_iters, bf_rounds), each [batch] int32.  A CPU tensor
-    takes the plain twin; a CUDA tensor launches kernel B."""
+def full_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
+    """Plain PyTorch twin of kernel D on ``llr``'s device: (hard [batch,
+    n_var] int8 0/1, mp_iters [batch] int32, bf_rounds [batch] int32)."""
+    from ..decoders.core import build_decoder
+
+    out = build_decoder(code, dcfg, backend="plain")(llr)
+    return out["hard"].to(torch.int8), out["mp_iters"], out["bf_rounds"]
+
+
+def _kernel_scratch(llr: torch.Tensor, tables: DecoderTables):
+    """Check what kernels B and D take; returns their scratch (en, msgs)."""
     code, dcfg = tables.code, tables.dcfg
-    if llr.device != tables.device:
-        raise ValueError(f"llr on {llr.device}, tables on {tables.device}")
-    if llr.device.type == "cpu":
-        return stats_decode_plain(llr, code, dcfg)
-    if llr.device.type != "cuda":
-        raise ValueError(f"no stats decoder for device {llr.device}")
     batch = llr.shape[0]
     if (llr.dtype != torch.int8 or llr.shape != (batch, code.n_var)
             or not llr.is_contiguous()):
         raise ValueError("llr must be a contiguous int8 [batch, n_var] tensor")
     if dcfg.stop_mode != "group":
-        raise NotImplementedError("the stats decoder kernel runs group "
-                                  "stop mode only")
+        raise NotImplementedError("the decoder kernels run group stop mode "
+                                  "only")
     if batch % GROUP or batch == 0:
         raise ValueError(f"batch must be a positive multiple of {GROUP}")
     if code.max_deg > MAX_DEG or code.n_var % code.z:
@@ -114,34 +123,86 @@ def stats_decode(llr: torch.Tensor, tables: DecoderTables):
             f"kernel bounds: row degree <= {MAX_DEG}, n_var % z == 0")
     if GROUP * code.n_block_rows * code.z > SMEM_LIMIT:
         raise NotImplementedError("the word's check map exceeds shared memory")
-    from ..utils import kernels
+    msgs = torch.empty((batch, int(tables.ent_col.numel()), code.z),
+                       dtype=torch.int8, device=llr.device)
+    return torch.empty_like(llr), msgs
 
-    lib = kernels.library()
-    dev = llr.device
-    n_entries = int(tables.ent_col.numel())
-    en = torch.empty_like(llr)
-    hard = torch.empty_like(llr)
-    msgs = torch.empty((batch, n_entries, code.z), dtype=torch.int8, device=dev)
-    err, iters, rounds = (torch.empty(batch, dtype=torch.int32, device=dev)
-                          for _ in range(3))
-    bf = dcfg.bf
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.faid_stats_decoder(
-            llr.data_ptr(), en.data_ptr(), msgs.data_ptr(), hard.data_ptr(),
-            err.data_ptr(), iters.data_ptr(), rounds.data_ptr(),
-            tables.row_ptr.data_ptr(), tables.ent_col.data_ptr(),
+
+def _code_args(tables: DecoderTables, batch: int) -> tuple:
+    """The code tables and parameters both kernels take after their
+    buffers (csrc/stats_decoder.cu ``FAID_CODE_PARAMS``)."""
+    code, dcfg, bf = tables.code, tables.dcfg, tables.dcfg.bf
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    return (tables.row_ptr.data_ptr(), tables.ent_col.data_ptr(),
             tables.ent_shift.data_ptr(), tables.elig_col.data_ptr(),
             tables.elig_row.data_ptr(), tables.elig_shift.data_ptr(),
             tables.lut.data_ptr(),
             batch, code.n_var, code.n_info, code.z, code.n_block_rows,
-            n_entries, code.n_var - code.puncture_tail, dcfg.max_iter,
-            int(tables.elig_col.numel()), bf.gamma, bf.max_iter, bf.delta,
-            bf.l0, bf.l1, bf.alpha, dcfg.oms_offset, int(dcfg.sign_backtrack),
-            stream)
+            int(tables.ent_col.numel()), code.n_var - code.puncture_tail,
+            dcfg.max_iter, int(tables.elig_col.numel()), bf.gamma,
+            bf.max_iter, bf.delta, bf.l0, bf.l1, bf.alpha, dcfg.oms_offset,
+            int(dcfg.sign_backtrack), stream)
+
+
+def _on_kernel_device(llr: torch.Tensor, tables: DecoderTables) -> bool:
+    """True for a CUDA ``llr`` (launch the kernel), False for a CPU one
+    (take the plain twin)."""
+    if llr.device != tables.device:
+        raise ValueError(f"llr on {llr.device}, tables on {tables.device}")
+    if llr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no decoder kernel for device {llr.device}")
+    return llr.device.type == "cuda"
+
+
+def stats_decode(llr: torch.Tensor, tables: DecoderTables):
+    """Decode ``llr`` [batch, n_var] int8 against the all-zero word:
+    (err_bits, mp_iters, bf_rounds), each [batch] int32.  A CPU tensor
+    takes the plain twin; a CUDA tensor launches kernel B."""
+    if not _on_kernel_device(llr, tables):
+        return stats_decode_plain(llr, tables.code, tables.dcfg)
+    en, msgs = _kernel_scratch(llr, tables)
+    from ..utils import kernels
+
+    lib = kernels.library()
+    batch = llr.shape[0]
+    hard = torch.empty_like(llr)
+    err, iters, rounds = (torch.empty(batch, dtype=torch.int32,
+                                      device=llr.device) for _ in range(3))
+    with torch.cuda.device(llr.device):
+        status = lib.faid_stats_decoder(
+            llr.data_ptr(), en.data_ptr(), msgs.data_ptr(), hard.data_ptr(),
+            err.data_ptr(), iters.data_ptr(), rounds.data_ptr(),
+            *_code_args(tables, batch))
     stats_decode.launches += 1
     kernels.check(status)
     return err, iters, rounds
 
 
 stats_decode.launches = 0
+
+
+def full_decode(llr: torch.Tensor, tables: DecoderTables):
+    """Decode ``llr`` [batch, n_var] int8: (hard [batch, n_var] int8 0/1,
+    mp_iters [batch] int32, bf_rounds [batch] int32), ``hard`` the
+    final decisions (after the DTBF tail).  A CPU tensor takes the plain
+    twin; a CUDA tensor launches kernel D."""
+    if not _on_kernel_device(llr, tables):
+        return full_decode_plain(llr, tables.code, tables.dcfg)
+    en, msgs = _kernel_scratch(llr, tables)
+    from ..utils import kernels
+
+    lib = kernels.library()
+    batch = llr.shape[0]
+    hard = torch.empty_like(llr)
+    iters, rounds = (torch.empty(batch, dtype=torch.int32, device=llr.device)
+                     for _ in range(2))
+    with torch.cuda.device(llr.device):
+        status = lib.faid_full_decoder(
+            llr.data_ptr(), en.data_ptr(), msgs.data_ptr(), hard.data_ptr(),
+            iters.data_ptr(), rounds.data_ptr(), *_code_args(tables, batch))
+    full_decode.launches += 1
+    kernels.check(status)
+    return hard, iters, rounds
+
+
+full_decode.launches = 0

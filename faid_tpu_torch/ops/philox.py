@@ -17,10 +17,17 @@ bit) is a pure function of those four:
   word(bit) = w[bit mod 4]
 
 ``frame`` is the GLOBAL frame index within the round (a multi-device
-run offsets it by the device's first frame), ``round`` the Monte-Carlo
-round index.  Nothing depends on the batch size, the block size or the
-launch geometry, so any frame of any round can be replayed exactly.
-The channel uses the word bit-cast to int32 (``ix``).
+run offsets it by the device's first frame, ``frame0 = rank * batch``;
+0 on one GPU), ``round`` the stream's 64-bit round.  The SNR sweep gives
+Monte-Carlo round ``rnd`` of SNR point ``snr_idx`` the stream round
+
+  round   = (snr_idx << 32) | rnd          ``stream_round``, both < 2^32
+
+the counterpart of the JAX runner's fold_in(fold_in(key(seed),
+snr_idx), rnd).  Nothing depends on the batch size, the block size or
+the launch geometry, so any frame of any round can be replayed exactly.
+The channel uses the word bit-cast to int32 (``ix``).  ``STREAM_TAG``
+names this contract; checkpoints record it (sim/runner.py).
 
 Philox4x32-10 is Random123's (Salmon et al., SC'11): ten rounds of
 ``(c0, c1, c2, c3) -> (hi(M1*c2) ^ c1 ^ k0, lo(M1*c2), hi(M0*c0) ^ c3 ^ k1,
@@ -38,6 +45,7 @@ M0, M1 = 0xD2511F53, 0xCD9E8D57        # round multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
 ROUNDS = 10
 _MASK = 0xFFFFFFFF
+STREAM_TAG = "philox4x32-10/v1"
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -72,6 +80,15 @@ def check_stream_args(seed: int, rnd: int, frame0: int, batch: int) -> None:
     if not (0 <= seed < 2**64 and 0 <= rnd < 2**64 and 0 <= frame0
             and frame0 + batch <= 2**32):
         raise ValueError("seed and round are uint64, frames uint32")
+
+
+def stream_round(snr_idx: int, rnd: int) -> int:
+    """The stream's 64-bit round for Monte-Carlo round ``rnd`` of SNR
+    point ``snr_idx``."""
+    if not (0 <= snr_idx < 2**32 and 0 <= rnd < 2**32):
+        raise ValueError(f"snr_idx {snr_idx} and round {rnd} must each lie "
+                         f"in [0, 2^32)")
+    return (snr_idx << 32) | rnd
 
 
 def channel_words(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,

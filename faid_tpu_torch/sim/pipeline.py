@@ -1,10 +1,20 @@
-"""One Monte-Carlo round: channel -> decode -> counters
-(``faid_tpu.sim.pipeline``).
+"""One Monte-Carlo round: channel -> decode -> counters, and its
+forensic replay (``faid_tpu.sim.pipeline``).
 
 This slice runs the all-zero codeword (``fake_encode``) through the
 fused quantile channel (``channel_backend="fused"``, BPSK/QPSK) and the
-stats decoder (FAID + DTBF).  On a CUDA device the round is two kernel
-launches, kernel A then kernel B, and every counter stays on the device.
+FAID + DTBF decoder.  On a CUDA device:
+
+  build_sim_step / build_sim_loop   kernel A (channel + ModCalErr counts)
+                                    then kernel B (stats decoder); every
+                                    counter stays on the device
+  build_debug_step                  kernel C (channel + ModCalErr map)
+                                    then kernel D (hard decisions): the
+                                    same round's frames, exactly
+
+``rnd`` is the channel stream's 64-bit round (ops/philox.py); the SNR
+sweep passes ``philox.stream_round(snr_idx, round)`` to both, so a
+replay redraws the sweep's LLRs bit for bit.
 
 Counters per round (the reference's CalculateErrors and ModCalErr):
   error_bits       decoded info-bit errors
@@ -23,8 +33,10 @@ import torch
 
 from ..code.qc_matrix import QCCode
 from ..config import SimConfig
-from ..decoders.core import build_stats_decoder
-from ..ops.cuda_channel import quantile_channel, threshold_ints
+from ..decoders.core import build_decoder, build_stats_decoder, check_backend
+from ..ops.cuda_channel import (quantile_channel, quantile_channel_map,
+                                threshold_ints)
+from ..ops.fixed_point import _QUANT_LIMITS
 
 
 def _histogram(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -35,12 +47,43 @@ def _histogram(x: torch.Tensor, length: int) -> torch.Tensor:
         dim=0, dtype=torch.int32)
 
 
+def check_ported(cfg: SimConfig, device) -> None:
+    """Raise NotImplementedError, naming the CLI flag to change, for a
+    round outside this slice on ``device``.  On a CUDA device the round
+    runs the kernels only: their group stop mode, never the plain path."""
+    check_backend(cfg.backend)
+    if torch.device(device).type == "cuda":
+        if cfg.stop_mode != "group":
+            raise NotImplementedError(
+                f"stop_mode={cfg.stop_mode!r} is not ported to the CUDA "
+                "kernels yet: pass --stop-mode group, or --device cpu")
+        if cfg.backend != "auto":
+            raise ValueError(
+                f"backend={cfg.backend!r} runs the plain PyTorch path, which "
+                "the port runs on the CPU only: pass --backend auto, or "
+                "--device cpu")
+    if not cfg.fake_encode:
+        raise NotImplementedError(
+            "the encoder is not ported yet: pass --fake-encode "
+            "(fake_encode=True, the all-zero codeword)")
+    if cfg.channel_backend != "fused":
+        raise NotImplementedError(
+            f"channel_backend={cfg.channel_backend!r} is not ported yet: pass "
+            "--channel-backend fused")
+    if cfg.mod_type not in (1, 2):
+        raise NotImplementedError(
+            f"mod_type {cfg.mod_type} is not ported yet: pass --mod-type 1 "
+            "or 2")
+    if cfg.quant_bits not in _QUANT_LIMITS:
+        raise NotImplementedError(
+            f"a {cfg.quant_bits}-bit quantizer is not ported yet: pass "
+            "--quant-bits 2..6")
+
+
 def _build_round(code: QCCode, cfg: SimConfig, device):
     """-> round(params, seed, rnd) -> counters, with ``params`` the
     channel thresholds on ``device``."""
-    if not cfg.fake_encode or cfg.channel_backend != "fused":
-        raise NotImplementedError(
-            "only fake_encode=True with channel_backend='fused' is ported")
+    check_ported(cfg, device)
     dcfg = cfg.decoder()
     batch = cfg.batch_per_device
     decoder = build_stats_decoder(code, dcfg, device)
@@ -74,9 +117,9 @@ def _build_round(code: QCCode, cfg: SimConfig, device):
     return run_round
 
 
-def build_sim_step(code: QCCode, cfg: SimConfig, device) -> Callable:
+def build_sim_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
     """Returns step(seed, rnd, sigma) -> dict of int32 counters on
-    ``device`` for Monte-Carlo round ``rnd`` of stream ``seed``."""
+    ``device`` for stream round ``rnd`` of stream ``seed``."""
     run_round = _build_round(code, cfg, device)
 
     def step(seed: int, rnd: int, sigma: float) -> dict:
@@ -86,10 +129,10 @@ def build_sim_step(code: QCCode, cfg: SimConfig, device) -> Callable:
 
 
 def build_sim_loop(code: QCCode, cfg: SimConfig, rounds: int,
-                   device) -> Callable:
+                   device="cuda") -> Callable:
     """Returns loop(seed, sigma, round0) -> counters summed ON the device
-    over rounds ``round0 .. round0 + rounds - 1``; identical to summing
-    ``build_sim_step``'s counters for those rounds."""
+    over stream rounds ``round0 .. round0 + rounds - 1``; identical to
+    summing ``build_sim_step``'s counters for those rounds."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     run_round = _build_round(code, cfg, device)
@@ -104,6 +147,41 @@ def build_sim_loop(code: QCCode, cfg: SimConfig, rounds: int,
         return acc
 
     return loop
+
+
+def build_debug_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
+    """Forensic replay step: the datapath of ``build_sim_step``, returning
+    per-frame arrays instead of counters.  Every channel word is a pure
+    function of (seed, rnd, frame), so any Monte-Carlo round can be
+    replayed exactly to dump its failing frames.
+
+    Returns debug(seed, rnd, sigma) -> dict(err_bits [batch] int32,
+    hard [batch, n_var] bool, cw [batch, n_var] int8, llr [batch, n_var]
+    int8, soft [batch, n_var] float32) on ``device``.  No float LLR
+    exists in the quantile channel, so ``soft`` is the dequantized
+    ``llr / scale``, as the JAX package's fused-channel replay gives it.
+    For the same (seed, rnd, sigma), ``err_bits`` sums to ``build_sim_step``'s
+    error_bits and counts its error_frames."""
+    check_ported(cfg, device)
+    decoder = build_decoder(code, cfg.decoder())
+    batch = cfg.batch_per_device
+    # A 0-dim tensor on the device, not a Python float: CUDA divides by a
+    # host scalar as a multiply by its float32 reciprocal, which is not
+    # always the quotient the JAX package's division gives.
+    scale = torch.tensor(cfg.scale, dtype=torch.float32, device=device)
+
+    def debug(seed: int, rnd: int, sigma: float) -> dict:
+        llr, _ = quantile_channel_map(
+            threshold_ints(cfg, sigma).to(device), seed=seed, rnd=rnd,
+            batch=batch, n_var=code.n_var, quant_bits=cfg.quant_bits)
+        out = decoder(llr)
+        # the all-zero word: every decoded 1 is an error
+        err = out["hard"][:, :code.n_info].sum(dim=1, dtype=torch.int32)
+        return {"err_bits": err, "hard": out["hard"],
+                "cw": torch.zeros_like(llr), "llr": llr,
+                "soft": llr.to(torch.float32) / scale}
+
+    return debug
 
 
 def sigma_for(cfg: SimConfig, snr_db: float) -> float:

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``faid_tpu_torch/csrc/`` are compiled at first use with
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, bound with ``ctypes``.  The library lands in
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and linked into one shared library with a plain C interface,
+bound with ``ctypes``.  The library lands in
 ``build/faid_tpu_torch/`` at the checkout's root (``.gitignore`` lists
 ``build/``), named by a hash of the sources and flags, so an edited
 source builds anew and an unchanged one loads the cached library.
@@ -22,9 +23,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "faid_tpu_torch"
 SOURCES = ("quantile_channel.cu", "stats_decoder.cu")
-HEADERS = ("philox.cuh",)
+HEADERS = ("philox.cuh", "staircase.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the entry points; every pointer and the stream are
@@ -33,7 +34,11 @@ _SIGNATURES = {
     "faid_quantile_channel": (
         [_P, _P, _P, _P, _P] + [_I] * 7
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
+    "faid_quantile_channel_map": (
+        [_P] * 4 + [_I] * 5
+        + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
     "faid_stats_decoder": ([_P] * 14 + [_I] * 17 + [_P], _I),
+    "faid_full_decoder": ([_P] * 13 + [_I] * 17 + [_P], _I),
     "faid_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -67,14 +72,25 @@ def library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if res.returncode != 0:
+        nvcc = _nvcc()
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+        objs = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(CSRC / s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True, check=False)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+            out = "\n".join(logs) + ("" if link is None else link.stderr)
+            raise RuntimeError(f"nvcc failed:\n{out}")
+        so.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():

@@ -125,7 +125,9 @@ def test_port_imports_no_jax():
             "faid_tpu_torch.decoders.bf", "faid_tpu_torch.ops.cn_update",
             "faid_tpu_torch.ops.cuda_channel", "faid_tpu_torch.ops.cuda_decoder",
             "faid_tpu_torch.ops.philox", "faid_tpu_torch.ops.syndrome",
-            "faid_tpu_torch.sim.pipeline", "faid_tpu_torch.utils.kernels"]
+            "faid_tpu_torch.sim.pipeline", "faid_tpu_torch.sim.runner",
+            "faid_tpu_torch.cli", "faid_tpu_torch.utils.kernels",
+            "faid_tpu_torch.utils.profile"]
     prog = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
