@@ -25,7 +25,19 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
      resumes from checkpoint.json: no kernel B launch, the same table),
      and the replay of one error round against build_sim_step;
   8. CUDA-event timings at 4.0 dB, batch 2048, each kernel and its plain
-     twin in turns, the replay rate, and each kernel's bound.
+     twin in turns (kernel E on OMS), kernel B per method, the replay
+     rate, and each kernel's bound;
+  9. every other method (NMS at 1/6 and 26/32, OMS, OMS+BF, OMS+DTBF,
+     FAID-2B1C) at 3.6 dB, batch 2048: kernel B against its twin, and
+     kernel D (BF tail) or E (none) against its twin, bit for bit on
+     kernel A's LLRs and on the toy code at batch 64; each BF method's
+     tail engaged; build_sim_loop for 8 rounds with the FER z-test
+     against that method's reference row (NMS at 1/6: every frame in
+     error); each method's decoded-info Mbit/s at 4.0 dB;
+ 10. the campaign path of a method without BF: the CLI with --method 1
+     (OMS) at 3.6 dB with --collect-errors (A, B, C and E launched,
+     frames dumped), and the replay of one error round against
+     build_sim_step.
 Any failed phase exits non-zero before the last line, which is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch and numpy, never JAX.
@@ -33,6 +45,7 @@ Imports torch and numpy, never JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -63,24 +76,52 @@ PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #     depend on the seed alone, so they count once per launch;
 #   staircase, per bit: the mask xor, 2L compares and 2L adds, the sign
 #     restore (xor, sub), the clip (min, max), the error compare = 4L + 6;
-#   row update, per edge and MP iteration (ops/cn_update.py): pass 1
-#     subtract, the clip to +-31 (max, min), sign with backtrack (select,
-#     compare), parity xor, magnitude (abs, min, table) and the min1/min2
-#     update (max, min, min) = 1 + 2 + 2 + 1 + 3 + 3 = 12 (en is within
-#     +-31 and a message within +-7, so the int8 saturation of en - msg
-#     never binds and is not counted); pass 2 compare with min1 and
-#     select, 2 sign xors, negate, add, clip (max, min) = 8;
+#   row update, per edge and MP iteration (ops/cn_update.py), FAID: pass
+#     1 subtract, the clip to +-31 (max, min), sign with backtrack
+#     (select, compare), parity xor, magnitude (abs, min, table) and the
+#     min1/min2 update (max, min, min) = 1 + 2 + 2 + 1 + 3 + 3 = 12 (en is
+#     within +-31 and a message within +-7, so the int8 saturation of
+#     en - msg never binds and is not counted); pass 2 compare with min1
+#     and select, 2 sign xors, negate, add, clip (max, min) = 8;
+#     NMS: pass 1 subtract, the lower clip (max), sign compare, parity
+#     xor, abs, min1/min2 (3) = 8; pass 2 as FAID's plus the abs of the
+#     raw compare = 9; selective OMS: NMS's plus the clip of |v| to 7 in
+#     pass 1 = 9 + 9;
+#   row update, per check and MP iteration: the two message magnitudes,
+#     FAID (subtract, min) x 2 = 4; EF 1 adds the floor gate (2 ands) and
+#     the swap of the LUT row (select) = 7; NMS (multiply, shift, min) x 2
+#     = 6 (the int8 saturation cannot bind); selective OMS the gate (2
+#     ands) and, per minimum, the raised and the lowered offsets (2
+#     compares, 2 adds each), the select and the clip to 7 = 2 + 2 x 10;
 #   syndrome sweep: one xor per edge, and one hard decision (en > 0) per
 #     VN where en changed since the last sweep (every MP sweep, and once
-#     as the DTBF tail starts; its sweeps read the hard bits);
+#     as a BF tail starts; its sweeps read the hard bits); the
+#     map-keeping styles (EF 1, selective OMS) add each frame's count, one
+#     add per check; NMS runs no sweep;
 #   DTBF flip, per weight-gamma bit and round: gamma vote adds, the
-#     disagreement xor, multiply-add, compare, flip xor = gamma + 4;
+#     disagreement xor, multiply-add, compare, flip xor = gamma + 4; 2B1C
+#     adds the reliability test and the demote select (+2), and seeds the
+#     reliability bits once (2 compares, an or: +3 per VN);
+#   static BF, per round: the votes of every column (one add per edge),
+#     and per VN the frame's max, the compare and the flip xor (+3);
 #   kernel B's error count: one add per info bit.
 PHILOX_OPS = 10 * 8
 PHILOX_KEY_OPS = 9 * 2
-ROW_OPS_PER_EDGE = 12 + 8
+ROW_OPS = {   # style -> (per edge, per check) of one row update
+    "faid": (12 + 8, 4), "faid_ef1": (12 + 8, 7), "nms": (8 + 9, 6),
+    "oms_selective": (9 + 9, 2 + 2 * 10)}
 SYNDROME_OPS_PER_EDGE = 1
 HARD_OPS_PER_VN = 1
+
+# Every decode method besides the main path's, as (label, method,
+# factor_1, factor_2): DecoderConfig.for_method's, and NMS also at the
+# factors its reference row uses.
+OTHER_METHODS = (("NMS 1/6", 0, 1, 6), ("NMS 26/32", 0, 26, 32),
+                 ("OMS", 1, 1, 6), ("OMS_BF", 3, 1, 6), ("OMS_DTBF", 4, 1, 6),
+                 ("FAID_2B1C", 5, 1, 6))
+# kernel B's FAID_DTBF time at 4.0 dB when it decoded that configuration
+# alone, before the template took the other methods (PERF.md section 6)
+SINGLE_CONFIG_B_MS = 9.1289
 
 
 def fail(msg: str):
@@ -134,47 +175,70 @@ def channel_ops(batch: int, n_var: int, quant_bits_l: int) -> float:
             + PHILOX_KEY_OPS)
 
 
-def decoder_ops(code, n_elig_bits: int, gamma: int, max_iter: int,
-                bf_max: int, mp_iters: torch.Tensor,
+def style_key(dcfg) -> str:
+    if dcfg.method == 0:
+        return "nms"
+    if dcfg.method in (1, 3, 4):
+        return "oms_selective"
+    return "faid_ef1" if dcfg.ef_elimination == 1 else "faid"
+
+
+def decoder_ops(code, tables, mp_iters: torch.Tensor,
                 bf_rounds: torch.Tensor) -> float:
     """The decoder's arithmetic for this run's per-frame iteration counts:
     each MP iteration's syndrome sweep and row updates, the sweep that
     finds a word clean, and, where MP ran out, the hard decisions that
-    open the DTBF tail and each of its sweeps and flip rounds (a sweep
-    that finds the word clean ends the tail before its round cap)."""
+    open the BF tail and each of its sweeps and flip rounds (a sweep that
+    finds the word clean ends the tail before its round cap)."""
+    dcfg, bfc = tables.dcfg, tables.dcfg.bf
     edges = int(code.degrees_np.sum()) * code.z
+    style = style_key(dcfg)
+    per_edge, per_check = ROW_OPS[style]
     mp = mp_iters.to(torch.float64)
     bf = bf_rounds.to(torch.float64)
-    clean = (mp_iters < max_iter).to(torch.float64)
-    tail = (mp_iters == max_iter).to(torch.float64)
-    tail_sweeps = tail * (bf + (bf_rounds < bf_max).to(torch.float64))
-    ops = (mp * edges * ROW_OPS_PER_EDGE
-           + (mp + clean) * (edges * SYNDROME_OPS_PER_EDGE
-                             + code.n_var * HARD_OPS_PER_VN)
-           + tail * code.n_var * HARD_OPS_PER_VN
+    zero = torch.zeros_like(mp)
+    sweeps = (mp + (mp_iters < dcfg.max_iter).to(torch.float64)
+              if dcfg.stop_early else zero)
+    tail = tail_sweeps = zero
+    if bfc.kind != "none":
+        tail = (mp_iters == dcfg.max_iter).to(torch.float64)
+        tail_sweeps = tail * (bf + (bf_rounds < bfc.max_iter).to(torch.float64))
+    vote_bits = int(tables.vote_col.numel()) * code.z
+    if bfc.kind == "static":
+        per_round = int(tables.vote_ptr[-1]) * code.z + 3 * vote_bits
+    else:
+        per_round = vote_bits * (bfc.gamma + 4 + 2 * (bfc.kind == "dtbf2b1c"))
+    keeps_map = style in ("faid_ef1", "oms_selective")
+    ops = (mp * (edges * per_edge + code.n_chk * per_check)
+           + sweeps * (edges * SYNDROME_OPS_PER_EDGE
+                       + code.n_var * HARD_OPS_PER_VN + code.n_chk * keeps_map)
+           + tail * code.n_var * (HARD_OPS_PER_VN + 3 * (bfc.kind == "dtbf2b1c"))
            + tail_sweeps * edges * SYNDROME_OPS_PER_EDGE
-           + bf * n_elig_bits * (gamma + 4))
+           + bf * per_round)
     return float(ops.sum())
 
 
-def reference_fer() -> tuple[float, int]:
+def reference_fer(method: str, factor_1: int, factor_2: int) -> tuple[float, int]:
+    """The reference simulator's QPSK 3.6 dB row of ``method``."""
     rows = json.loads((REPO / "docs" / "refcheck_fer_compare.json").read_text())
     for r in rows["rows"]:
-        if (r["method"] == "FAID_DTBF" and r["snr_db"] == 3.6
-                and r["mod_type"] == 2 and r["lut"] == "faid3"
-                and r["scale"] == 13.0):
+        if (r["method"] == method and r["snr_db"] == 3.6 and r["mod_type"] == 2
+                and r["depth"] == 1 and r["lut"] == "faid3"
+                and r["scale"] == 13.0 and r["factor_1"] == factor_1
+                and r["factor_2"] == factor_2):
             return r["ref_fer"], r["ref_frames"]
-    fail("no FAID_DTBF QPSK 3.6 dB row in docs/refcheck_fer_compare.json")
+    fail(f"no {method} QPSK 3.6 dB row in docs/refcheck_fer_compare.json")
 
 
-def fer_z(error_frames: int, frames: int) -> float:
+def fer_z(error_frames: int, frames: int, method: str = "FAID_DTBF",
+          factor_1: int = 1, factor_2: int = 6) -> float:
     """Two-proportion z of an FER against the reference's 3.6 dB row."""
-    ref_fer, ref_n = reference_fer()
+    ref_fer, ref_n = reference_fer(method, factor_1, factor_2)
     fer = error_frames / frames
     pbar = (error_frames + ref_fer * ref_n) / (frames + ref_n)
     z = (fer - ref_fer) / math.sqrt(pbar * (1 - pbar) * (1 / frames + 1 / ref_n))
-    print(f"FER {fer:.6f} over {frames} frames vs reference {ref_fer} over "
-          f"{ref_n}: z = {z:.3f}")
+    print(f"{method} FER {fer:.6f} over {frames} frames vs reference {ref_fer} "
+          f"over {ref_n}: z = {z:.3f}")
     return z
 
 
@@ -196,7 +260,8 @@ def main():
     check(not any(m.split(".")[0] in ("jax", "faid_tpu") for m in sys.modules),
           "JAX or faid_tpu was imported")
     wrappers = {"A": cc.quantile_channel, "B": cd.stats_decode,
-                "C": cc.quantile_channel_map, "D": cd.full_decode}
+                "C": cc.quantile_channel_map, "D": cd.full_decode,
+                "E": cd.mp_decode}
 
     def reset_counts():
         for w in wrappers.values():
@@ -403,8 +468,8 @@ def main():
         check(rc == 0, f"the CLI returned {rc}")
         print(f"CLI sweep 3.6-3.7 dB: {sweep_s:.3f} s wall, launches "
               f"{cli_counts}")
-        check(all(v > 0 for v in cli_counts.values()),
-              f"the campaign path did not launch every kernel: {cli_counts}")
+        check(all(cli_counts[k] > 0 for k in "ABCD") and cli_counts["E"] == 0,
+              f"the campaign path did not launch A-D only: {cli_counts}")
         table = (outdir / "Result.txt").read_text().splitlines()
         print("\n".join("  " + r for r in table))
         rows = [r.split() for r in table[1:]]
@@ -475,23 +540,183 @@ def main():
           f"frames/s; sweep {sweep_s:.3f} s wall, points "
           f"{[round(s, 3) for s in sweep_seconds]} s")
 
-    _, iters40, rounds40 = cd.stats_decode(llr40, tables)
-    n_elig_bits = int(tables.elig_col.numel()) * code.z
-    dec_ops = decoder_ops(code, n_elig_bits, dcfg.bf.gamma, dcfg.max_iter,
-                          dcfg.bf.max_iter, iters40, rounds40)
+    # every other method's configuration and its tables on the card
+    mcfgs = {label: dataclasses.replace(cfg, decode_method=DecodeMethod(m),
+                                        factor_1=f1, factor_2=f2)
+             for label, m, f1, f2 in OTHER_METHODS}
+    mtables = {label: cd.decoder_tables(code, c.decoder(), dev)
+               for label, c in mcfgs.items()}
+    oms_dcfg = mcfgs["OMS"].decoder()
+    ms_e, plain_e = in_turns(lambda: cd.mp_decode(llr40, mtables["OMS"]),
+                             lambda: cd.mp_decode_plain(llr40, code, oms_dcfg),
+                             10, 2)
+    print(f"kernel E (OMS) at 4.0 dB, batch {BATCH} ({card}): {ms_e:.4f} ms "
+          f"(plain {plain_e:.4f}); kernel B FAID_DTBF {ms_b:.4f} ms = "
+          f"{ms_b / SINGLE_CONFIG_B_MS:.4f} x the single-configuration "
+          f"kernel's {SINGLE_CONFIG_B_MS} ms (within 5%: "
+          f"{abs(ms_b / SINGLE_CONFIG_B_MS - 1) <= 0.05})")
+
     nbytes = BATCH * code.n_var
+    b_bytes = nbytes + 3 * 4 * BATCH
+
+    def b_bound(t, llr):
+        _, iters, rounds = cd.stats_decode(llr, t)
+        return bound(b_bytes, decoder_ops(code, t, iters, rounds)
+                     + BATCH * code.n_info)
+
+    for label, t in mtables.items():
+        ms_m = cuda_ms(lambda: cd.stats_decode(llr40, t), 5)
+        bm = b_bound(t, llr40)
+        print(f"kernel B {label} at 4.0 dB ({card}): {ms_m:.4f} ms, bound "
+              f"{bm[0]:.4f} ms by {bm[1]} ({bm[0] / ms_m:.1%})")
+
+    _, iters40, rounds40 = cd.stats_decode(llr40, tables)
+    dec_ops = decoder_ops(code, tables, iters40, rounds40)
+    _, e_iters40 = cd.mp_decode(llr40, mtables["OMS"])
+    e_ops = decoder_ops(code, mtables["OMS"], e_iters40,
+                        torch.zeros_like(e_iters40))
     bounds = {
         "A": bound(nbytes + 2 * 4 * BATCH, channel_ops(BATCH, code.n_var, L)),
         "C": bound(2 * nbytes, channel_ops(BATCH, code.n_var, L)),
-        "B": bound(nbytes + 3 * 4 * BATCH, dec_ops + BATCH * code.n_info),
+        "B": bound(b_bytes, dec_ops + BATCH * code.n_info),
         "D": bound(2 * nbytes + 2 * 4 * BATCH, dec_ops),
+        "E": bound(2 * nbytes + 4 * BATCH, e_ops),
     }
-    times = {"A": ms_a, "B": ms_b, "C": ms_c, "D": ms_d}
+    times = {"A": ms_a, "B": ms_b, "C": ms_c, "D": ms_d, "E": ms_e}
     print(f"bounds at 4.0 dB (decoder work: mp_iters {int(iters40.sum())}, "
-          f"bf_rounds {int(rounds40.sum())}, {dec_ops:.4g} int32 ops), share "
+          f"bf_rounds {int(rounds40.sum())}, {dec_ops:.4g} int32 ops; E on "
+          f"OMS: mp_iters {int(e_iters40.sum())}, {e_ops:.4g} ops), share "
           f"= bound / time: " + ", ".join(
               f"{k} {v[0]:.4f} ms by {v[1]} ({v[0] / times[k]:.1%})"
               for k, v in bounds.items()))
+
+    # ---- phase 9: every other method on the card ----------------------------
+    err_e = 0
+    for label, mcfg in mcfgs.items():
+        mdcfg, t = mcfg.decoder(), mtables[label]
+        has_bf = mdcfg.bf.kind != "none"
+        ttab = cd.decoder_tables(toy, dataclasses.replace(
+            tcfg, decode_method=mcfg.decode_method, factor_1=mcfg.factor_1,
+            factor_2=mcfg.factor_2).decoder(), dev)
+        for where, llr, c, tb in (("full code 3.6 dB", llr36, code, t),
+                                  ("toy code batch 64", tllr, toy, ttab)):
+            got = cd.stats_decode(llr, tb)
+            want = cd.stats_decode_plain(llr, c, tb.dcfg)
+            if has_bf:
+                got2 = cd.full_decode(llr, tb)
+                want2 = cd.full_decode_plain(llr, c, tb.dcfg)
+                hard = got2[0]
+            else:
+                got2 = cd.mp_decode(llr, tb)
+                want2 = cd.mp_decode_plain(llr, c, tb.dcfg)
+                hard = got2[0] > 0
+            torch.cuda.synchronize()
+            eb = max_abs_diff(zip(got, want))
+            e2 = max_abs_diff(zip(got2, want2))
+            # the second kernel's info-bit errors and counts are B's
+            vs_b = max_abs_diff(
+                [(hard[:, :c.n_info].sum(dim=1, dtype=torch.int32), got[0]),
+                 (got2[1], got[1])] + ([(got2[2], got[2])] if has_bf else []))
+            k2 = "D" if has_bf else "E"
+            print(f"{label}, {where}: kernel B vs plain max_abs_err {eb} "
+                  f"(frames with errors {int((got[0] > 0).sum())}, mp_iters "
+                  f"{int(got[1].sum())}, bf_rounds {int(got[2].sum())}); "
+                  f"kernel {k2} vs plain max_abs_err {e2}; {k2}'s errors and "
+                  f"counts vs B max_abs_err {vs_b}")
+            check(eb == 0, f"kernel B differs from its plain twin: {label}, {where}")
+            check(e2 == 0, f"kernel {k2} differs from its plain twin: {label}, {where}")
+            check(vs_b == 0, f"kernel {k2}'s counts differ from B's: {label}, {where}")
+            check(not has_bf or c is toy or int(got[2].sum()) > 0,
+                  f"{label}'s BF tail was not engaged, {where}")
+            err_b = max(err_b, eb)
+            if has_bf:
+                err_d = max(err_d, e2)
+            else:
+                err_e = max(err_e, e2)
+
+        if has_bf:
+            # where kernel B's time goes at 3.6 dB: MP, and the BF tail
+            # (the same launch with the tail's round cap at 0)
+            no_tail = cd.decoder_tables(code, dataclasses.replace(
+                mdcfg, bf=dataclasses.replace(mdcfg.bf, max_iter=0)), dev)
+            ms_all = cuda_ms(lambda: cd.stats_decode(llr36, t), 3)
+            ms_mp = cuda_ms(lambda: cd.stats_decode(llr36, no_tail), 3)
+            rounds = cd.stats_decode(llr36, t)[2].view(-1, 32)[:, 0]
+            print(f"{label} kernel B at 3.6 dB ({card}): {ms_all:.4f} ms, of "
+                  f"which MP {ms_mp:.4f} ms and the BF tail "
+                  f"{ms_all - ms_mp:.4f} ms; BF rounds per word: mean "
+                  f"{float(rounds.float().mean()):.2f}, max "
+                  f"{int(rounds.max())}, words at the cap "
+                  f"{int((rounds == mdcfg.bf.max_iter).sum())} of "
+                  f"{rounds.numel()}")
+
+        loop = build_sim_loop(code, mcfg, FER_ROUNDS, "cuda")
+        reset_counts()
+        out = loop(SEED, sigma36, 0)
+        torch.cuda.synchronize()
+        m_counts = counts()
+        out = {k: v.tolist() for k, v in out.items()}
+        print(f"{label} build_sim_loop, 3.6 dB: {json.dumps(out)} launches "
+              f"{m_counts}")
+        check(m_counts["A"] > 0 and m_counts["B"] > 0,
+              f"{label}'s loop launched kernels {m_counts}")
+        check(out["test_frames"] == FER_ROUNDS * BATCH, "wrong frame count")
+        check(sum(out["mp_hist"]) == sum(out["bf_hist"]) == out["test_frames"],
+              "histograms do not cover every frame")
+        name = {0: "NMS", 1: "OMS", 3: "OMS_BF", 4: "OMS_DTBF",
+                5: "FAID_2B1C"}[int(mcfg.decode_method)]
+        if reference_fer(name, mcfg.factor_1, mcfg.factor_2)[0] == 1.0:
+            # the z formula divides by zero at an FER of exactly 1
+            check(out["error_frames"] == out["test_frames"],
+                  f"{label}: FER {out['error_frames'] / out['test_frames']} "
+                  "where the reference's is 1.0")
+            print(f"{label} FER 1.0 over {out['test_frames']} frames, as the "
+                  "reference's")
+        else:
+            z = fer_z(out["error_frames"], out["test_frames"], name,
+                      mcfg.factor_1, mcfg.factor_2)
+            check(abs(z) <= Z_LIMIT, f"{label}: |z| = {abs(z):.2f} > {Z_LIMIT}")
+
+        e2e_m = build_sim_loop(code, mcfg, 5, "cuda")
+        ms_m = cuda_ms(lambda: e2e_m(SEED, sigma40, 100), 2)
+        print(f"{label} main path at 4.0 dB, batch {BATCH} ({card}): "
+              f"{ms_m / 5:.4f} ms/round = "
+              f"{5 * BATCH * code.n_info / (ms_m * 1e-3) / 1e6:.1f} Mbit/s "
+              "decoded info")
+
+    # ---- phase 10: the campaign path of a method without BF (OMS) ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        outdir = Path(tmp) / "oms"
+        argv = ["--method", "1", "--fake-encode", "--channel-backend", "fused",
+                "--stop-mode", "group", "--batch", str(BATCH),
+                "--snr-start", "3.6", "--snr-pass", "0.1", "--snr-end", "3.65",
+                "--min-frames", str(FER_ROUNDS * BATCH), "--seed", str(SEED),
+                "--collect-errors", "--quiet", "--out", str(outdir)]
+        reset_counts()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        oms_counts = counts()
+        check(rc == 0, f"the OMS campaign returned {rc}")
+        print(f"OMS campaign, 3.6 dB: launches {oms_counts}")
+        print("\n".join("  " + r for r in
+                        (outdir / "Result.txt").read_text().splitlines()))
+        check(all(oms_counts[k] > 0 for k in "ABCE") and oms_counts["D"] == 0,
+              f"the OMS campaign did not launch A, B, C and E only: {oms_counts}")
+        dumped = (outdir / "errorindex.txt").read_text().splitlines()
+        print(f"OMS dumped frames: {len(dumped)}")
+        check(len(dumped) >= 1, "the OMS campaign dumped no failing frame")
+        ck = json.loads((outdir / "checkpoint.json").read_text())
+        r0 = ck["results"][0]["err_chunks"][0][0]
+    oms_cfg = mcfgs["OMS"]
+    sr = philox.stream_round(0, r0)
+    a = build_sim_step(code, oms_cfg, "cuda")(SEED, sr, sigma36)
+    b = build_debug_step(code, oms_cfg, "cuda")(SEED, sr, sigma36)
+    eb, ef = int(b["err_bits"].sum()), int((b["err_bits"] > 0).sum())
+    print(f"OMS replay of round {r0} at 3.6 dB: step error_bits "
+          f"{int(a['error_bits'])} frames {int(a['error_frames'])}, debug "
+          f"{eb} / {ef}")
+    check(int(a["error_bits"]) == eb and int(a["error_frames"]) == ef > 0,
+          "the OMS replay's error counts differ from the step's")
 
     def entry(name, key, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": source,
@@ -511,9 +736,12 @@ def main():
               "faid_tpu_torch/csrc/quantile_channel.cu",
               "faid_tpu/ops/pallas_channel.py:474", cli_counts["C"], err_c,
               ms_c, plain_c),
-        entry("full_decoder", "D", "faid_tpu_torch/csrc/stats_decoder.cu",
+        entry("full_decoder", "D", "faid_tpu_torch/csrc/full_decoder.cu",
               "faid_tpu/ops/pallas_decoder.py:797", cli_counts["D"], err_d,
               ms_d, plain_d),
+        entry("mp_decoder", "E", "faid_tpu_torch/csrc/mp_decoder.cu",
+              "faid_tpu/ops/pallas_decoder.py:728", oms_counts["E"], err_e,
+              ms_e, plain_e),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ kernel in ``csrc/``, built with nvcc at first use:
   A  quantile channel + ModCalErr counts   ops/cuda_channel.py  (sweep)
   B  stats decoder                         ops/cuda_decoder.py  (sweep)
   C  quantile channel + ModCalErr map      ops/cuda_channel.py  (replay)
-  D  full decoder (hard decisions)         ops/cuda_decoder.py  (replay)
+  D  full decoder (hard decisions)         ops/cuda_decoder.py  (replay,
+                                           methods with a BF tail)
+  E  MP-only decoder (final LLRs)          ops/cuda_decoder.py  (replay,
+                                           NMS and OMS)
 
 It imports torch and numpy, never JAX.  Entry points run on ``cuda``
 unless the caller asks for the CPU, where each kernel's plain twin runs.

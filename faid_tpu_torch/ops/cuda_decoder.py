@@ -1,45 +1,81 @@
-"""The decoder kernels: MP + DTBF for FAID with EF 0
-(``faid_tpu.ops.pallas_decoder``).
+"""The decoder kernels (``faid_tpu.ops.pallas_decoder``):
 
   stats_decode  per-frame info-bit error count, mp_iters, bf_rounds:
                 kernel B (``make_stats_decoder``), the Monte-Carlo sweep's
-                decoder
+                decoder, every method
   full_decode   hard decisions [B, n_var], mp_iters, bf_rounds: kernel D
                 (``make_full_decoder``), build_decoder's kernel path and
-                the forensic replay's decoder
+                the forensic replay's decoder for the methods with a BF
+                tail (FAID+DTBF, OMS+BF, OMS+DTBF, FAID-2B1C)
+  mp_decode     the final LLRs en [B, n_var], mp_iters: kernel E
+                (``make_mp_decoder``), the same for the methods without
+                one (NMS, OMS)
 
-Both kernels are one template in csrc/stats_decoder.cu.  Each wrapper
-launches its kernel on a CUDA tensor and takes its plain twin
-(``*_plain``) on a CPU tensor.  The twins are the composition of the
-plain modules (decoders/core.py ``build_decoder(backend="plain")``:
-syndrome, row updates, DTBF), plus the error count for B; each agrees
-with its kernel bit for bit.
+The three kernels are one template (csrc/decoder.cuh) over the output,
+the check-node style and the BF kind, instantiated for the (style, BF
+kind) pairs ``DecoderConfig.for_method`` produces (``KERNEL_PAIRS``).
+Each wrapper launches its kernel on a CUDA tensor and takes its plain
+twin (``*_plain``) on a CPU tensor.  The twins are the composition of
+the plain modules (decoders/core.py ``build_decoder(backend="plain")``:
+syndrome, row updates, BF), plus the error count for B; each agrees with
+its kernel bit for bit.
 
-The kernels cover FAID with EF 0 + DTBF in group stop mode and codes of
-row degree <= ``MAX_DEG``; kernel B also only the all-zero reference
-word.  Other configurations raise before any launch.
+The kernels run group stop mode, codes of row degree <= ``MAX_DEG``,
+and, for kernel B, the all-zero reference word.  Other configurations
+raise before any launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..code.qc_matrix import QCCode
-from ..config import DecoderConfig
+from ..config import DecodeMethod, DecoderConfig
 from ..convert import tables_from_arrays
 from ..decoders import luts
 from ..decoders.bf import GROUP   # frames per stop word == per thread block
 
-MAX_DEG = 24     # csrc/stats_decoder.cu kMaxDeg
+MAX_DEG = 24     # csrc/decoder.cuh kMaxDeg
 SMEM_LIMIT = 232_448   # shared memory one Hopper block can use, bytes
+
+# csrc/decoder.cuh's Style and Bf ids
+NMS, OMS_SELECTIVE, FAID, FAID_EF1 = range(4)
+BF_IDS = {"none": 0, "static": 1, "dtbf": 2, "dtbf2b1c": 3}
+# the (style, BF kind) pairs the kernels are instantiated for: those of
+# DecoderConfig.for_method
+KERNEL_PAIRS = frozenset({(NMS, 0), (OMS_SELECTIVE, 0), (FAID, 2),
+                          (OMS_SELECTIVE, 1), (OMS_SELECTIVE, 2),
+                          (FAID_EF1, 3)})
+
+
+def _style_id(dcfg: DecoderConfig) -> int | None:
+    if dcfg.method == DecodeMethod.NMS:
+        return NMS
+    if dcfg.method in (DecodeMethod.OMS, DecodeMethod.OMS_BF,
+                       DecodeMethod.OMS_DTBF):
+        return OMS_SELECTIVE if dcfg.oms_mode == 1 else None
+    return {0: FAID, 1: FAID_EF1}.get(dcfg.ef_elimination)
+
+
+def kernel_ids(dcfg: DecoderConfig) -> tuple[int, int]:
+    """(style id, BF kind id) of ``dcfg``'s kernel instance; raises
+    NotImplementedError for a pair the kernels are not built for."""
+    pair = (_style_id(dcfg), BF_IDS.get(dcfg.bf.kind))
+    if pair not in KERNEL_PAIRS:
+        raise NotImplementedError(
+            f"the decoder kernels are built for DecoderConfig.for_method's "
+            f"(style, BF kind) pairs; {dcfg} is not one")
+    return pair
 
 
 @dataclasses.dataclass(frozen=True)
 class DecoderTables:
-    """The code and decoder tables kernel B reads, on one device."""
+    """The code and decoder tables the decoder kernels read, on one
+    device."""
 
     code: QCCode
     dcfg: DecoderConfig
@@ -47,13 +83,18 @@ class DecoderTables:
     row_ptr: torch.Tensor     # [n_rows + 1] first entry of each block row
     ent_col: torch.Tensor     # [n_entries] block column of each entry
     ent_shift: torch.Tensor   # [n_entries] circulant shift of each entry
-    elig_col: torch.Tensor    # [n_elig] block columns of weight gamma
-    elig_row: torch.Tensor    # [n_elig * gamma] their block rows
-    elig_shift: torch.Tensor  # [n_elig * gamma] and shifts
+    vote_col: torch.Tensor    # [n_vote] block columns the BF tail flips
+    vote_ptr: torch.Tensor    # [n_vote + 1] first adjacency entry of each
+    vote_row: torch.Tensor    # their block rows
+    vote_shift: torch.Tensor  # and shifts
     lut: torch.Tensor         # [max_iter, 8] FAID magnitudes
+    lut_ef: torch.Tensor      # [max_iter, 8] FAID error-floor magnitudes
 
 
 def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
+    """The tables of ``dcfg``'s decode on ``device``.  The BF tail votes
+    on the columns of weight gamma (DTBF, 2B1C) or on every column
+    (static BF)."""
     from ..decoders.core import check_ported
 
     check_ported(dcfg)
@@ -66,15 +107,19 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
                            for r in range(code.n_block_rows)])
     shifts = np.concatenate([code.shifts_np[r, :deg[r]]
                              for r in range(code.n_block_rows)])
-    adj = {}
+    adj = {c: [] for c in range(code.n_block_cols)}
     for r in range(code.n_block_rows):
         for c, s in zip(code.block_cols[r][:deg[r]], code.shifts[r][:deg[r]]):
-            adj.setdefault(c, []).append((r, s))
-    elig = [c for c in sorted(adj) if len(adj[c]) == dcfg.bf.gamma]
-    elig_rs = np.array([rs for c in elig for rs in adj[c]],
+            adj[c].append((r, s))
+    if dcfg.bf.kind == "static":
+        vote = list(adj)
+    else:
+        vote = [c for c in adj if len(adj[c]) == dcfg.bf.gamma]
+    vote_rs = np.array([rs for c in vote for rs in adj[c]],
                        dtype=np.int32).reshape(-1, 2)
-    lut, _ = tables_from_arrays(luts.table_for(dcfg.lut_family, dcfg.max_iter),
-                                luts.ef_table(dcfg.max_iter), device)
+    lut, lut_ef = tables_from_arrays(
+        luts.table_for(dcfg.lut_family, dcfg.max_iter),
+        luts.ef_table(dcfg.max_iter), device)
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
@@ -83,8 +128,11 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
     return DecoderTables(
         code=code, dcfg=dcfg, device=device,
         row_ptr=t(np.concatenate([[0], np.cumsum(deg)])),
-        ent_col=t(cols), ent_shift=t(shifts), elig_col=t(elig),
-        elig_row=t(elig_rs[:, 0]), elig_shift=t(elig_rs[:, 1]), lut=lut)
+        ent_col=t(cols), ent_shift=t(shifts), vote_col=t(vote),
+        vote_ptr=t(np.concatenate([[0], np.cumsum([len(adj[c])
+                                                    for c in vote])])),
+        vote_row=t(vote_rs[:, 0]), vote_shift=t(vote_rs[:, 1]), lut=lut,
+        lut_ef=lut_ef)
 
 
 def stats_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
@@ -106,8 +154,18 @@ def full_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
     return out["hard"].to(torch.int8), out["mp_iters"], out["bf_rounds"]
 
 
+def mp_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
+    """Plain PyTorch twin of kernel E on ``llr``'s device: (en [batch,
+    n_var] int8, mp_iters [batch] int32)."""
+    from ..decoders.core import build_plain_mp
+
+    en, mp_iters = build_plain_mp(code, dcfg)(llr)
+    return en.reshape(llr.shape[0], code.n_var).to(torch.int8), mp_iters
+
+
 def _kernel_scratch(llr: torch.Tensor, tables: DecoderTables):
-    """Check what kernels B and D take; returns their scratch (en, msgs)."""
+    """Check what the decoder kernels take; returns their scratch (en,
+    msgs)."""
     code, dcfg = tables.code, tables.dcfg
     batch = llr.shape[0]
     if (llr.dtype != torch.int8 or llr.shape != (batch, code.n_var)
@@ -128,20 +186,29 @@ def _kernel_scratch(llr: torch.Tensor, tables: DecoderTables):
     return torch.empty_like(llr), msgs
 
 
-def _code_args(tables: DecoderTables, batch: int) -> tuple:
-    """The code tables and parameters both kernels take after their
-    buffers (csrc/stats_decoder.cu ``FAID_CODE_PARAMS``)."""
+def _code_args(tables: DecoderTables):
+    """The kernels' code tables and parameters (csrc/decoder.cuh
+    ``CodeArgs``), and the current stream."""
+    from ..utils import kernels
+
     code, dcfg, bf = tables.code, tables.dcfg, tables.dcfg.bf
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    return (tables.row_ptr.data_ptr(), tables.ent_col.data_ptr(),
-            tables.ent_shift.data_ptr(), tables.elig_col.data_ptr(),
-            tables.elig_row.data_ptr(), tables.elig_shift.data_ptr(),
-            tables.lut.data_ptr(),
-            batch, code.n_var, code.n_info, code.z, code.n_block_rows,
-            int(tables.ent_col.numel()), code.n_var - code.puncture_tail,
-            dcfg.max_iter, int(tables.elig_col.numel()), bf.gamma,
-            bf.max_iter, bf.delta, bf.l0, bf.l1, bf.alpha, dcfg.oms_offset,
-            int(dcfg.sign_backtrack), stream)
+    ptrs = {k: getattr(tables, k).data_ptr() for k in (
+        "row_ptr", "ent_col", "ent_shift", "vote_col", "vote_ptr", "vote_row",
+        "vote_shift", "lut", "lut_ef")}
+    args = kernels.DecoderArgs(
+        **ptrs, n_var=code.n_var, n_info=code.n_info, z=code.z,
+        n_rows=code.n_block_rows, n_entries=int(tables.ent_col.numel()),
+        punct_start=code.n_var - code.puncture_tail, max_iter=dcfg.max_iter,
+        stop_early=int(dcfg.stop_early), factor_1=dcfg.factor_1,
+        factor_2=dcfg.factor_2, offset=dcfg.oms_offset,
+        sign_backtrack=int(dcfg.sign_backtrack),
+        floor_err_count=dcfg.floor_err_count,
+        floor_iter_thresh=dcfg.floor_iter_thresh,
+        n_vote=int(tables.vote_col.numel()), gamma=bf.gamma,
+        bf_max_iter=bf.max_iter, delta=bf.delta, l0_max=bf.l0, l1_max=bf.l1,
+        alpha=bf.alpha, vote_cap=bf.static_vote_cap,
+        reliability=bf.reliability_threshold)
+    return ctypes.byref(args), torch.cuda.current_stream(tables.device).cuda_stream
 
 
 def _on_kernel_device(llr: torch.Tensor, tables: DecoderTables) -> bool:
@@ -154,25 +221,38 @@ def _on_kernel_device(llr: torch.Tensor, tables: DecoderTables) -> bool:
     return llr.device.type == "cuda"
 
 
+def _hard_scratch(llr: torch.Tensor, bf: int):
+    """The BF tail's hard bits (None without a tail) and the 2B1C
+    reliability bits (None for another kind)."""
+    return (torch.empty_like(llr) if bf != BF_IDS["none"] else None,
+            torch.empty_like(llr) if bf == BF_IDS["dtbf2b1c"] else None)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def stats_decode(llr: torch.Tensor, tables: DecoderTables):
     """Decode ``llr`` [batch, n_var] int8 against the all-zero word:
     (err_bits, mp_iters, bf_rounds), each [batch] int32.  A CPU tensor
     takes the plain twin; a CUDA tensor launches kernel B."""
     if not _on_kernel_device(llr, tables):
         return stats_decode_plain(llr, tables.code, tables.dcfg)
+    style, bf = kernel_ids(tables.dcfg)
     en, msgs = _kernel_scratch(llr, tables)
     from ..utils import kernels
 
     lib = kernels.library()
     batch = llr.shape[0]
-    hard = torch.empty_like(llr)
+    hard, hard2 = _hard_scratch(llr, bf)
     err, iters, rounds = (torch.empty(batch, dtype=torch.int32,
                                       device=llr.device) for _ in range(3))
     with torch.cuda.device(llr.device):
+        args, stream = _code_args(tables)
         status = lib.faid_stats_decoder(
-            llr.data_ptr(), en.data_ptr(), msgs.data_ptr(), hard.data_ptr(),
-            err.data_ptr(), iters.data_ptr(), rounds.data_ptr(),
-            *_code_args(tables, batch))
+            style, bf, llr.data_ptr(), en.data_ptr(), msgs.data_ptr(),
+            _ptr(hard), _ptr(hard2), err.data_ptr(), iters.data_ptr(),
+            rounds.data_ptr(), args, batch, stream)
     stats_decode.launches += 1
     kernels.check(status)
     return err, iters, rounds
@@ -182,27 +262,61 @@ stats_decode.launches = 0
 
 
 def full_decode(llr: torch.Tensor, tables: DecoderTables):
-    """Decode ``llr`` [batch, n_var] int8: (hard [batch, n_var] int8 0/1,
-    mp_iters [batch] int32, bf_rounds [batch] int32), ``hard`` the
-    final decisions (after the DTBF tail).  A CPU tensor takes the plain
-    twin; a CUDA tensor launches kernel D."""
+    """Decode ``llr`` [batch, n_var] int8 with a BF tail: (hard [batch,
+    n_var] int8 0/1, mp_iters [batch] int32, bf_rounds [batch] int32),
+    ``hard`` the final decisions (after the BF tail).  A CPU tensor takes
+    the plain twin; a CUDA tensor launches kernel D."""
     if not _on_kernel_device(llr, tables):
         return full_decode_plain(llr, tables.code, tables.dcfg)
+    style, bf = kernel_ids(tables.dcfg)
+    if bf == BF_IDS["none"]:
+        raise ValueError("kernel D runs a BF tail; mp_decode (kernel E) "
+                         "decodes a configuration without one")
     en, msgs = _kernel_scratch(llr, tables)
     from ..utils import kernels
 
     lib = kernels.library()
     batch = llr.shape[0]
-    hard = torch.empty_like(llr)
+    hard, hard2 = _hard_scratch(llr, bf)
     iters, rounds = (torch.empty(batch, dtype=torch.int32, device=llr.device)
                      for _ in range(2))
     with torch.cuda.device(llr.device):
+        args, stream = _code_args(tables)
         status = lib.faid_full_decoder(
-            llr.data_ptr(), en.data_ptr(), msgs.data_ptr(), hard.data_ptr(),
-            iters.data_ptr(), rounds.data_ptr(), *_code_args(tables, batch))
+            style, bf, llr.data_ptr(), en.data_ptr(), msgs.data_ptr(),
+            hard.data_ptr(), _ptr(hard2), iters.data_ptr(), rounds.data_ptr(),
+            args, batch, stream)
     full_decode.launches += 1
     kernels.check(status)
     return hard, iters, rounds
 
 
 full_decode.launches = 0
+
+
+def mp_decode(llr: torch.Tensor, tables: DecoderTables):
+    """MP-decode ``llr`` [batch, n_var] int8 with no BF tail: (en [batch,
+    n_var] int8, the final LLRs; mp_iters [batch] int32).  A CPU tensor
+    takes the plain twin; a CUDA tensor launches kernel E."""
+    if not _on_kernel_device(llr, tables):
+        return mp_decode_plain(llr, tables.code, tables.dcfg)
+    style, bf = kernel_ids(tables.dcfg)
+    if bf != BF_IDS["none"]:
+        raise ValueError("kernel E runs no BF tail; full_decode (kernel D) "
+                         "decodes a configuration with one")
+    en, msgs = _kernel_scratch(llr, tables)
+    from ..utils import kernels
+
+    lib = kernels.library()
+    iters = torch.empty(llr.shape[0], dtype=torch.int32, device=llr.device)
+    with torch.cuda.device(llr.device):
+        args, stream = _code_args(tables)
+        status = lib.faid_mp_decoder(
+            style, llr.data_ptr(), en.data_ptr(), msgs.data_ptr(),
+            iters.data_ptr(), args, llr.shape[0], stream)
+    mp_decode.launches += 1
+    kernels.check(status)
+    return en, iters
+
+
+mp_decode.launches = 0

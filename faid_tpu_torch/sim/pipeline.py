@@ -1,16 +1,17 @@
 """One Monte-Carlo round: channel -> decode -> counters, and its
 forensic replay (``faid_tpu.sim.pipeline``).
 
-This slice runs the all-zero codeword (``fake_encode``) through the
-fused quantile channel (``channel_backend="fused"``, BPSK/QPSK) and the
-FAID + DTBF decoder.  On a CUDA device:
+The port runs the all-zero codeword (``fake_encode``) through the fused
+quantile channel (``channel_backend="fused"``, BPSK/QPSK) and any of the
+six decoders.  On a CUDA device:
 
   build_sim_step / build_sim_loop   kernel A (channel + ModCalErr counts)
                                     then kernel B (stats decoder); every
                                     counter stays on the device
   build_debug_step                  kernel C (channel + ModCalErr map)
-                                    then kernel D (hard decisions): the
-                                    same round's frames, exactly
+                                    then kernel D (hard decisions, a BF
+                                    tail) or kernel E (MP only, NMS and
+                                    OMS): the same round's frames, exactly
 
 ``rnd`` is the channel stream's 64-bit round (ops/philox.py); the SNR
 sweep passes ``philox.stream_round(snr_idx, round)`` to both, so a

@@ -22,12 +22,32 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "faid_tpu_torch"
-SOURCES = ("quantile_channel.cu", "stats_decoder.cu")
-HEADERS = ("philox.cuh", "staircase.cuh")
+SOURCES = ("quantile_channel.cu", "stats_decoder.cu", "full_decoder.cu",
+           "mp_decoder.cu")
+HEADERS = ("philox.cuh", "staircase.cuh", "decoder.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class DecoderArgs(ctypes.Structure):
+    """The decoder kernels' code tables and parameters, field for field
+    csrc/decoder.cuh ``CodeArgs``; the entry points take a pointer."""
+
+    _fields_ = ([(name, _P) for name in (
+                    "row_ptr", "ent_col", "ent_shift", "vote_col", "vote_ptr",
+                    "vote_row", "vote_shift", "lut", "lut_ef")]
+                + [(name, _I) for name in (
+                    "n_var", "n_info", "z", "n_rows", "n_entries",
+                    "punct_start", "max_iter", "stop_early", "factor_1",
+                    "factor_2", "offset", "sign_backtrack", "floor_err_count",
+                    "floor_iter_thresh", "n_vote", "gamma", "bf_max_iter",
+                    "delta", "l0_max", "l1_max", "alpha", "vote_cap",
+                    "reliability")])
+
+
+_ARGS = ctypes.POINTER(DecoderArgs)
 # C signatures of the entry points; every pointer and the stream are
 # c_void_p so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
@@ -37,8 +57,9 @@ _SIGNATURES = {
     "faid_quantile_channel_map": (
         [_P] * 4 + [_I] * 5
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
-    "faid_stats_decoder": ([_P] * 14 + [_I] * 17 + [_P], _I),
-    "faid_full_decoder": ([_P] * 13 + [_I] * 17 + [_P], _I),
+    "faid_stats_decoder": ([_I, _I] + [_P] * 8 + [_ARGS, _I, _P], _I),
+    "faid_full_decoder": ([_I, _I] + [_P] * 7 + [_ARGS, _I, _P], _I),
+    "faid_mp_decoder": ([_I] + [_P] * 4 + [_ARGS, _I, _P], _I),
     "faid_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -5,6 +5,7 @@ xla backend on the full code."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import jax
@@ -90,12 +91,14 @@ def test_block_row_update(rng, family, sign_backtrack):
             lut=torch.from_numpy(lut.astype(np.int32)),
             sign_backtrack=sign_backtrack)
         got_en, got_m = tup(torch.from_numpy(en).to(torch.int32),
-                            torch.from_numpy(msgs).to(torch.int32), it)
+                            torch.from_numpy(msgs).to(torch.int32),
+                            cn_update.RowCtx(it=it))
         np.testing.assert_array_equal(got_en.numpy(), np.asarray(want_en))
         np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    # FAID's EF 2 is the one style option not ported
     with pytest.raises(NotImplementedError):
-        cn_update.make_block_row_update(code, 0, style="oms", oms_offset=1,
-                                        lut=None)
+        cn_update.make_block_row_update(code, 0, style="faid", oms_offset=0,
+                                        lut=None, ef_elimination=2)
 
 
 @pytest.mark.parametrize("group", [False, True])
@@ -177,11 +180,22 @@ def test_full_code_vs_xla(rng):
 
 
 def test_unported_configs_raise():
+    """FAID's EF 2 raises on any device; every for_method configuration
+    builds; a (style, BF kind) pair outside for_method's is refused by
+    the kernels before a launch (so no card is needed here)."""
     code = toy_code()
-    for method in (DecodeMethod.OMS, DecodeMethod.OMS_DTBF,
-                   DecodeMethod.FAID_2B1C, DecodeMethod.NMS):
-        with pytest.raises(NotImplementedError):
-            build_decoder(code, DecoderConfig.for_method(method))
+    ef2 = dataclasses.replace(
+        DecoderConfig.for_method(DecodeMethod.FAID_2B1C), ef_elimination=2)
+    with pytest.raises(NotImplementedError, match="ef_elimination=2"):
+        build_decoder(code, ef2)
+    with pytest.raises(NotImplementedError, match="ef_elimination=2"):
+        build_stats_decoder(code, ef2, "cpu")
+    for method in DecodeMethod:
+        build_decoder(code, DecoderConfig.for_method(method, factor_1=26,
+                                                     factor_2=32))
+    with pytest.raises(NotImplementedError, match="for_method"):
+        cuda_decoder.kernel_ids(dataclasses.replace(
+            DecoderConfig.for_method(DecodeMethod.OMS_DTBF), oms_mode=0))
     ok = DecoderConfig.for_method(DecodeMethod.FAID_DTBF,
                                   lut_family=FaidLutFamily.FAID32)
     build_decoder(code, ok)

@@ -179,9 +179,17 @@ def test_cpu_never_launches_kernels():
 def test_unported_pipeline_configs_raise():
     code = toy_code()
     for kw in (dict(fake_encode=False), dict(channel_backend="xla"),
-               dict(decode_method=DecodeMethod.OMS)):
+               dict(mod_type=4), dict(quant_bits=1)):
         with pytest.raises(NotImplementedError):
             build_sim_step(code, _cfg(SimConfig, 32, **kw), "cpu")
+    # on a CUDA device: frame stop mode and the plain backend, refused
+    # before any table reaches the device
+    with pytest.raises(NotImplementedError, match="--stop-mode group"):
+        build_sim_step(code, _cfg(SimConfig, 32, stop_mode="frame",
+                                  decode_method=DecodeMethod.OMS), "cuda")
+    with pytest.raises(ValueError, match="--backend auto"):
+        build_sim_step(code, _cfg(SimConfig, 32, backend="plain",
+                                  decode_method=DecodeMethod.NMS), "cuda")
     with pytest.raises(ValueError):
         build_sim_loop(code, _cfg(SimConfig, 32), 0, "cpu")
     step = build_sim_step(code, _cfg(SimConfig, 33), "cpu")

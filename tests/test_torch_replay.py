@@ -143,6 +143,22 @@ def test_debug_step_matches_sim_step(seed, snr_idx, rnd):
         b["err_bits"].numpy(), b["hard"][:, :code.n_info].sum(1).numpy())
 
 
+@pytest.mark.parametrize("method", [0, 1, 3, 4, 5])
+def test_debug_step_matches_sim_step_methods(method):
+    """The replay of the other methods (kernel E's path for NMS and OMS,
+    kernel D's for the rest) gives the sweep step's error counts."""
+    code = toy_code()
+    cfg = _sim_cfg(decode_method=method, factor_1=26 if method == 0 else 1,
+                   factor_2=32 if method == 0 else 6)
+    sigma = cfg.sigma_at(1.5)
+    sr = philox.stream_round(1, 3)
+    a = build_sim_step(code, cfg, "cpu")(9, sr, sigma)
+    b = build_debug_step(code, cfg, "cpu")(9, sr, sigma)
+    assert int(a["error_bits"]) == int(b["err_bits"].sum()) > 0
+    assert int(a["error_frames"]) == int((b["err_bits"] > 0).sum())
+    assert (int(a["bf_rounds"]) > 0) == (method in (3, 4, 5))
+
+
 def test_stream_round():
     assert philox.stream_round(0, 0) == 0
     assert philox.stream_round(3, 7) == 3 * 2**32 + 7
@@ -159,7 +175,7 @@ def test_stream_round():
 def test_replay_rejects_unported_configs():
     code = toy_code()
     for kw in (dict(fake_encode=False), dict(channel_backend="xla"),
-               dict(mod_type=4), dict(decode_method=DecodeMethod.OMS)):
+               dict(mod_type=4), dict(quant_bits=1)):
         with pytest.raises(NotImplementedError):
             build_debug_step(code, _sim_cfg(**kw), "cpu")
     with pytest.raises(ValueError):

@@ -185,16 +185,23 @@ def _fields(cfg):
             for f in dataclasses.fields(cfg)}
 
 
-@pytest.mark.parametrize("stop_mode,batch", [("group", 32), ("frame", 4)])
-def test_tables_byte_equal_to_jax(tmp_path, stop_mode, batch):
-    """Result.txt, demod.txt and iterCount.txt (both formats) written by
-    the port and by faid_tpu from the same results are the same bytes."""
+@pytest.mark.parametrize("stop_mode,batch,method", [
+    ("group", 32, DecodeMethod.FAID_DTBF), ("frame", 4, DecodeMethod.FAID_DTBF),
+    ("group", 32, DecodeMethod.OMS), ("group", 32, DecodeMethod.OMS_DTBF)])
+def test_tables_byte_equal_to_jax(tmp_path, stop_mode, batch, method):
+    """Result.txt, demod.txt, iterCount.txt (both formats) and Temp.txt's
+    row written by the port and by faid_tpu from the same results are the
+    same bytes: for FAID+DTBF, for OMS (no BF: a 2-bucket bf_hist, all
+    zero) and for OMS+DTBF (50 BF rounds)."""
     cfg = cfg_at(snr_start=-1.0, snr_pass=1.5, snr_end=2.0, min_frames=64,
                  batch_per_device=batch, stop_mode=stop_mode,
-                 max_iteration=6)
-    r = make_runner(cfg)
+                 max_iteration=6, decode_method=method)
+    r = make_runner(cfg, temp_txt_path=tmp_path / "t_Temp.txt")
     r.run()
     assert len(r.results) == 2
+    bf_hist = r.results[0].counters["bf_hist"]
+    assert len(bf_hist) == max(cfg.decoder().bf.max_iter, 1) + 1
+    assert (sum(bf_hist[1:]) > 0) == (method != DecodeMethod.OMS)
     j = object.__new__(jrunner.MonteCarloRunner)
     j.cfg, j.code = JSimConfig(**_fields(cfg)), jtoy_code()
     j.results = [jrunner.SnrResult(x.snr_db, x.counters, x.seconds,
@@ -204,13 +211,22 @@ def test_tables_byte_equal_to_jax(tmp_path, stop_mode, batch):
                ("iterCount.txt", "write_itercount_txt", {}),
                ("iterCount_ref.txt", "write_itercount_txt",
                 {"ref_format": True})]
-    for name, method, kw in writers:
-        getattr(r, method)(tmp_path / f"t_{name}", **kw)
-        getattr(j, method)(tmp_path / f"j_{name}", **kw)
+    for name, method_name, kw in writers:
+        getattr(r, method_name)(tmp_path / f"t_{name}", **kw)
+        getattr(j, method_name)(tmp_path / f"j_{name}", **kw)
         got = (tmp_path / f"t_{name}").read_bytes()
         assert got == (tmp_path / f"j_{name}").read_bytes(), name
-        assert got
+        # the reference format lists BF rounds used only: none for OMS
+        assert got or (name == "iterCount_ref.txt"
+                       and method == DecodeMethod.OMS)
     assert r.report_rows() == j.report_rows()
+    # Temp.txt: the in-flight row is the reference's; the resume line
+    # names each package's own stream
+    j.temp_txt_path, j._state = tmp_path / "j_Temp.txt", r._state
+    j._write_temp_txt(r.results[-1].snr_db, r.results[-1].counters)
+    got, want = ((tmp_path / f"{p}_Temp.txt").read_text().splitlines()[0]
+                 for p in "tj")
+    assert got == want
 
 
 def test_helpers_match_jax():
