@@ -10,20 +10,23 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
      3.6 and 4.0 dB;
   3. kernel B (stats decoder) against its plain twin, bit for bit, on
      kernel A's 3.6 dB LLRs, and on the toy code at batch 64;
-  4. the main path, build_sim_loop at 3.6 dB, batch 2048, 8 rounds: A and
-     B launched, noise flowed, FER z-test against the reference
-     simulator's FAID_DTBF QPSK 3.6 dB row (docs/refcheck_fer_compare.json);
+  4. the main path, build_sim_loop at 3.6 dB, batch 2048, 8 rounds: kernel
+     F launched (not A or B), noise flowed, FER z-test against the
+     reference simulator's FAID_DTBF QPSK 3.6 dB row
+     (docs/refcheck_fer_compare.json); the same loop composed from A and
+     B (fuse=False) gives the same counters;
   5. CUDA-event timings at 4.0 dB, batch 2048: the main path's
-     decoded-info Mbit/s;
+     decoded-info Mbit/s, fused (F) and composed (A + B) in turns;
   6. kernel C (quantile channel + ModCalErr map) and kernel D (full
      decoder) against their plain twins, bit for bit, at batch 2048 on
      the full code and at batch 64 on the toy code; C's LLRs equal A's,
      D's info-bit error counts equal B's;
   7. the campaign path, `python -m faid_tpu_torch.cli` as a user calls it:
-     a 3.6/3.7 dB sweep at batch 2048 with --collect-errors (A, B, C, D
-     launched, FER z-test, frames dumped), the same command again (it
-     resumes from checkpoint.json: no kernel B launch, the same table),
-     and the replay of one error round against build_sim_step;
+     a 3.6/3.7 dB sweep at batch 2048 with --collect-errors (F, then C
+     through fused_sim_emit and D launched, FER z-test, frames dumped),
+     the same command again (it resumes from checkpoint.json: no kernel F
+     launch, the same table), and the replay of one error round against
+     build_sim_step;
   8. CUDA-event timings at 4.0 dB, batch 2048, each kernel and its plain
      twin in turns (kernel E on OMS), kernel B per method, the replay
      rate, and each kernel's bound;
@@ -31,13 +34,33 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
      FAID-2B1C) at 3.6 dB, batch 2048: kernel B against its twin, and
      kernel D (BF tail) or E (none) against its twin, bit for bit on
      kernel A's LLRs and on the toy code at batch 64; each BF method's
-     tail engaged; build_sim_loop for 8 rounds with the FER z-test
-     against that method's reference row (NMS at 1/6: every frame in
-     error); each method's decoded-info Mbit/s at 4.0 dB;
+     tail engaged; build_sim_loop (kernel F) for 8 rounds with the FER
+     z-test against that method's reference row (NMS at 1/6: every frame
+     in error); each method's decoded-info Mbit/s at 4.0 dB;
  10. the campaign path of a method without BF: the CLI with --method 1
-     (OMS) at 3.6 dB with --collect-errors (A, B, C and E launched,
-     frames dumped), and the replay of one error round against
-     build_sim_step.
+     (OMS) at 3.6 dB with --collect-errors (F, C and E launched, frames
+     dumped), and the replay of one error round against build_sim_step;
+ 11. the encoder at batch 2048: bit-equal to the CPU encode of the same
+     message bits, H c = 0 for every frame, its CUDA-event time (a
+     library call, torch._int_mm) beside its bound;
+ 12. kernel F against its plain twin and against kernel A then kernel B,
+     per frame and counter, for every method, both stop modes, fake and
+     real codewords, at 3.6 dB on the full code at batch 2048 and on the
+     toy code; the BF rounds per word;
+ 13. fused_sim_emit (kernel C) then D (FAID_DTBF) or E (OMS) gives F's
+     err_bits frame by frame, and emit's LLRs are kernel C's;
+ 14. frame stop mode: kernels B, D and E against their twins for every
+     method at batch 2048, and build_sim_loop (kernel F) for 8 rounds per
+     method at 3.6 dB, FER z-test against the JAX package's frame-mode
+     rows;
+ 15. the main path with real codewords: FER z-test at 3.6 dB (FAID_DTBF,
+     group), Mbit/s at 4.0 dB beside the all-zero word's, and kernel F
+     against A + B in turns;
+ 16. the campaign path with real codewords: the CLI without --fake-encode
+     at 3.6/3.7 dB with --collect-errors, its resume, the dumped frame's
+     positions against the replay, whose codeword is the encoder's of the
+     regenerated message, and the replayed round against the step; and
+     the same CLI in frame stop mode at 3.6 dB.
 Any failed phase exits non-zero before the last line, which is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch and numpy, never JAX.
@@ -122,6 +145,12 @@ OTHER_METHODS = (("NMS 1/6", 0, 1, 6), ("NMS 26/32", 0, 26, 32),
 # kernel B's FAID_DTBF time at 4.0 dB when it decoded that configuration
 # alone, before the template took the other methods (PERF.md section 6)
 SINGLE_CONFIG_B_MS = 9.1289
+# the peak int8 tensor-core rate of the H100 SXM at 700 W, dense (NVIDIA's
+# data sheet): the encoder's product
+PEAK_INT8_OPS_PER_S = 1979e12
+# the JAX package's method names (docs/refcheck_fer_compare.json)
+METHOD_NAMES = {0: "NMS", 1: "OMS", 2: "FAID_DTBF", 3: "OMS_BF", 4: "OMS_DTBF",
+                5: "FAID_2B1C"}
 
 
 def fail(msg: str):
@@ -218,28 +247,46 @@ def decoder_ops(code, tables, mp_iters: torch.Tensor,
     return float(ops.sum())
 
 
-def reference_fer(method: str, factor_1: int, factor_2: int) -> tuple[float, int]:
-    """The reference simulator's QPSK 3.6 dB row of ``method``."""
+def reference_fer(method: str, factor_1: int, factor_2: int,
+                  source: str = "ref") -> tuple[float, int]:
+    """The QPSK 3.6 dB row of ``method``: the reference simulator's
+    (``source="ref"``, group stop mode) or the JAX package's frame stop
+    mode run (``"frame"``)."""
     rows = json.loads((REPO / "docs" / "refcheck_fer_compare.json").read_text())
     for r in rows["rows"]:
         if (r["method"] == method and r["snr_db"] == 3.6 and r["mod_type"] == 2
                 and r["depth"] == 1 and r["lut"] == "faid3"
                 and r["scale"] == 13.0 and r["factor_1"] == factor_1
                 and r["factor_2"] == factor_2):
-            return r["ref_fer"], r["ref_frames"]
+            return r[f"{source}_fer"], r[f"{source}_frames"]
     fail(f"no {method} QPSK 3.6 dB row in docs/refcheck_fer_compare.json")
 
 
 def fer_z(error_frames: int, frames: int, method: str = "FAID_DTBF",
-          factor_1: int = 1, factor_2: int = 6) -> float:
-    """Two-proportion z of an FER against the reference's 3.6 dB row."""
-    ref_fer, ref_n = reference_fer(method, factor_1, factor_2)
+          factor_1: int = 1, factor_2: int = 6, source: str = "ref") -> float:
+    """Two-proportion z of an FER against ``reference_fer``'s row."""
+    ref_fer, ref_n = reference_fer(method, factor_1, factor_2, source)
     fer = error_frames / frames
     pbar = (error_frames + ref_fer * ref_n) / (frames + ref_n)
     z = (fer - ref_fer) / math.sqrt(pbar * (1 - pbar) * (1 / frames + 1 / ref_n))
-    print(f"{method} FER {fer:.6f} over {frames} frames vs reference {ref_fer} "
+    print(f"{method} FER {fer:.6f} over {frames} frames vs {source} row {ref_fer} "
           f"over {ref_n}: z = {z:.3f}")
     return z
+
+
+def check_fer(out: dict, method: str, factor_1: int, factor_2: int, label: str,
+              source: str = "ref"):
+    """The FER z-test of a loop's counters; a row of exactly 1.0 (NMS at
+    1/6) asks for every frame in error, where z divides by zero."""
+    if reference_fer(method, factor_1, factor_2, source)[0] == 1.0:
+        check(out["error_frames"] == out["test_frames"],
+              f"{label}: FER {out['error_frames'] / out['test_frames']} where "
+              f"the {source} row's is 1.0")
+        print(f"{label} FER 1.0 over {out['test_frames']} frames, as the {source} row's")
+        return
+    z = fer_z(out["error_frames"], out["test_frames"], method, factor_1, factor_2,
+              source)
+    check(abs(z) <= Z_LIMIT, f"{label}: |z| = {abs(z):.2f} > {Z_LIMIT}")
 
 
 def main():
@@ -248,11 +295,13 @@ def main():
     try:
         from faid_tpu_torch import (build_debug_step, build_sim_loop,
                                     build_sim_step, cli, load_code, sigma_for)
+        from faid_tpu_torch.code.encoder import make_encode_fn, syndrome_weight
         from faid_tpu_torch.code.toy import toy_code
         from faid_tpu_torch.config import DecodeMethod, SimConfig
         from faid_tpu_torch.decoders.core import build_decoder
         from faid_tpu_torch.ops import cuda_channel as cc
         from faid_tpu_torch.ops import cuda_decoder as cd
+        from faid_tpu_torch.ops import cuda_sim as cs
         from faid_tpu_torch.ops import philox
         from faid_tpu_torch.utils import kernels
     except ImportError as e:
@@ -261,7 +310,7 @@ def main():
           "JAX or faid_tpu was imported")
     wrappers = {"A": cc.quantile_channel, "B": cd.stats_decode,
                 "C": cc.quantile_channel_map, "D": cd.full_decode,
-                "E": cd.mp_decode}
+                "E": cd.mp_decode, "F": cs.fused_sim, "emit": cs.fused_sim_emit}
 
     def reset_counts():
         for w in wrappers.values():
@@ -375,24 +424,39 @@ def main():
     main_counts = counts()
     out = {k: v.tolist() for k, v in out.items()}
     print("main path, 3.6 dB:", json.dumps(out), "launches", main_counts)
-    check(main_counts["A"] > 0 and main_counts["B"] > 0,
-          f"main path launched kernel A {main_counts['A']}x, kernel B "
-          f"{main_counts['B']}x")
+    check(main_counts["F"] > 0 and main_counts["A"] == main_counts["B"] == 0,
+          f"main path launched kernels {main_counts}, not F alone")
     check(out["test_frames"] == FER_ROUNDS * BATCH, "wrong frame count")
     check(out["mod_error_bits"] > 0, "no channel noise reached the decoder")
     check(sum(out["mp_hist"]) == sum(out["bf_hist"]) == out["test_frames"],
           "histograms do not cover every frame")
     z = fer_z(out["error_frames"], out["test_frames"])
     check(abs(z) <= Z_LIMIT, f"|z| = {abs(z):.2f} > {Z_LIMIT}")
+    # the composed path, kernel A then kernel B, on the same stream rounds
+    loop_ab = build_sim_loop(code, cfg, FER_ROUNDS, "cuda", fuse=False)
+    reset_counts()
+    out_ab = loop_ab(SEED, sigma_for(cfg, 3.6), 0)
+    torch.cuda.synchronize()
+    ab_counts = counts()
+    out_ab = {k: v.tolist() for k, v in out_ab.items()}
+    print(f"composed path (fuse=False), 3.6 dB: launches {ab_counts}; counters "
+          f"equal to the main path's: {out_ab == out}")
+    check(ab_counts["A"] > 0 and ab_counts["B"] > 0 and ab_counts["F"] == 0,
+          f"the composed path launched kernels {ab_counts}")
+    check(out_ab == out, "kernels A then B count other than kernel F")
 
     # ---- phase 5: the main path's rate at 4.0 dB ----------------------------
     e2e_rounds = 10
     e2e = build_sim_loop(code, cfg, e2e_rounds, "cuda")
-    ms_e2e = cuda_ms(lambda: e2e(SEED, sigma_for(cfg, 4.0), 100), 3)
+    e2e_ab = build_sim_loop(code, cfg, e2e_rounds, "cuda", fuse=False)
+    ms_e2e, ms_e2e_ab = in_turns(lambda: e2e(SEED, sigma_for(cfg, 4.0), 100),
+                                 lambda: e2e_ab(SEED, sigma_for(cfg, 4.0), 100), 3, 3)
     mbit_s = e2e_rounds * BATCH * code.n_info / (ms_e2e * 1e-3) / 1e6
-    print(f"main path at 4.0 dB, batch {BATCH} ({card}): "
-          f"{ms_e2e / e2e_rounds:.4f} ms/round = {mbit_s:.1f} Mbit/s "
-          f"decoded info")
+    mbit_s_ab = e2e_rounds * BATCH * code.n_info / (ms_e2e_ab * 1e-3) / 1e6
+    print(f"main path at 4.0 dB, batch {BATCH} ({card}), in turns: kernel F "
+          f"{ms_e2e / e2e_rounds:.4f} ms/round = {mbit_s:.1f} Mbit/s decoded "
+          f"info; kernels A + B {ms_e2e_ab / e2e_rounds:.4f} ms/round = "
+          f"{mbit_s_ab:.1f} Mbit/s")
 
     # ---- phase 6: kernels C and D vs their plain twins ----------------------
     err_c = 0
@@ -468,8 +532,9 @@ def main():
         check(rc == 0, f"the CLI returned {rc}")
         print(f"CLI sweep 3.6-3.7 dB: {sweep_s:.3f} s wall, launches "
               f"{cli_counts}")
-        check(all(cli_counts[k] > 0 for k in "ABCD") and cli_counts["E"] == 0,
-              f"the campaign path did not launch A-D only: {cli_counts}")
+        check(all(cli_counts[k] > 0 for k in ("F", "C", "D", "emit"))
+              and cli_counts["A"] == cli_counts["B"] == cli_counts["E"] == 0,
+              f"the campaign path did not launch F, C and D only: {cli_counts}")
         table = (outdir / "Result.txt").read_text().splitlines()
         print("\n".join("  " + r for r in table))
         rows = [r.split() for r in table[1:]]
@@ -496,7 +561,7 @@ def main():
         check(rc == 0, f"the resumed CLI returned {rc}")
         table2 = (outdir / "Result.txt").read_text().splitlines()
         print(f"CLI rerun: launches {resume_counts}")
-        check(resume_counts["B"] == 0 and resume_counts["A"] == 0,
+        check(resume_counts["F"] == 0 and resume_counts["A"] == 0,
               "the rerun did not resume from checkpoint.json")
         check([r.split()[:7] for r in table2] == [r.split()[:7] for r in table],
               "the resumed Result.txt differs")
@@ -531,6 +596,28 @@ def main():
                              10, 2)
     ms_d, plain_d = in_turns(lambda: cd.full_decode(llr40, tables),
                              lambda: plain_dec(llr40), 10, 2)
+    # kernel F on the same frames, against kernel A then kernel B
+    sim_kw = dict(seed=SEED, rnd=9, batch=BATCH, mod_type=2, quant_bits=4)
+    f40 = cs.fused_sim(params40, tables, **sim_kw)
+    ab40 = (*cd.stats_decode(llr40, tables),
+            *cc.quantile_channel(params40, seed=SEED, rnd=9, **ch)[1:])
+    torch.cuda.synchronize()
+    check(max_abs_diff(zip((f40[k] for k in cs.COUNTERS), ab40)) == 0,
+          "kernel F differs from kernels A then B at 4.0 dB")
+    ms_f, ms_ab = in_turns(
+        lambda: cs.fused_sim(params40, tables, **sim_kw),
+        lambda: cd.stats_decode(cc.quantile_channel(
+            params40, seed=SEED, rnd=9, **ch)[0], tables), 10, 10)
+    plain_f = cuda_ms(lambda: cs.fused_sim_plain(params40, code, dcfg, **sim_kw), 2)
+    ms_emit, plain_emit = in_turns(
+        lambda: cs.fused_sim_emit(params40, seed=SEED, rnd=9, **chm),
+        lambda: cc.quantile_channel_map_plain(params40, seed=SEED, rnd=9, **chm),
+        20, 3)
+    print(f"kernel F at 4.0 dB, batch {BATCH} ({card}), in turns with kernel A "
+          f"then kernel B on the same frames: F {ms_f:.4f} ms, A + B "
+          f"{ms_ab:.4f} ms ({ms_f / ms_ab:.4f} x); F's plain twin "
+          f"{plain_f:.4f} ms; emit (kernel C) {ms_emit:.4f} ms, plain "
+          f"{plain_emit:.4f} ms")
     replay_ms = cuda_ms(lambda: debug(SEED, philox.stream_round(1, 0), sigma40), 5)
     print(f"timings at 4.0 dB, batch {BATCH} ({card}), kernel vs plain twin "
           f"in turns: A {ms_a:.4f} ms (plain {plain_a:.4f}), C {ms_c:.4f} ms "
@@ -581,8 +668,13 @@ def main():
         "B": bound(b_bytes, dec_ops + BATCH * code.n_info),
         "D": bound(2 * nbytes + 2 * 4 * BATCH, dec_ops),
         "E": bound(2 * nbytes + 4 * BATCH, e_ops),
+        # F: A's work and B's, its only traffic the five counters out
+        "F": bound(5 * 4 * BATCH, channel_ops(BATCH, code.n_var, L) + dec_ops
+                   + BATCH * code.n_info),
     }
-    times = {"A": ms_a, "B": ms_b, "C": ms_c, "D": ms_d, "E": ms_e}
+    bounds["emit"] = bounds["C"]
+    times = {"A": ms_a, "B": ms_b, "C": ms_c, "D": ms_d, "E": ms_e, "F": ms_f,
+             "emit": ms_emit}
     print(f"bounds at 4.0 dB (decoder work: mp_iters {int(iters40.sum())}, "
           f"bf_rounds {int(rounds40.sum())}, {dec_ops:.4g} int32 ops; E on "
           f"OMS: mp_iters {int(e_iters40.sum())}, {e_ops:.4g} ops), share "
@@ -658,24 +750,13 @@ def main():
         out = {k: v.tolist() for k, v in out.items()}
         print(f"{label} build_sim_loop, 3.6 dB: {json.dumps(out)} launches "
               f"{m_counts}")
-        check(m_counts["A"] > 0 and m_counts["B"] > 0,
+        check(m_counts["F"] > 0 and m_counts["A"] == m_counts["B"] == 0,
               f"{label}'s loop launched kernels {m_counts}")
         check(out["test_frames"] == FER_ROUNDS * BATCH, "wrong frame count")
         check(sum(out["mp_hist"]) == sum(out["bf_hist"]) == out["test_frames"],
               "histograms do not cover every frame")
-        name = {0: "NMS", 1: "OMS", 3: "OMS_BF", 4: "OMS_DTBF",
-                5: "FAID_2B1C"}[int(mcfg.decode_method)]
-        if reference_fer(name, mcfg.factor_1, mcfg.factor_2)[0] == 1.0:
-            # the z formula divides by zero at an FER of exactly 1
-            check(out["error_frames"] == out["test_frames"],
-                  f"{label}: FER {out['error_frames'] / out['test_frames']} "
-                  "where the reference's is 1.0")
-            print(f"{label} FER 1.0 over {out['test_frames']} frames, as the "
-                  "reference's")
-        else:
-            z = fer_z(out["error_frames"], out["test_frames"], name,
-                      mcfg.factor_1, mcfg.factor_2)
-            check(abs(z) <= Z_LIMIT, f"{label}: |z| = {abs(z):.2f} > {Z_LIMIT}")
+        check_fer(out, METHOD_NAMES[int(mcfg.decode_method)], mcfg.factor_1,
+                  mcfg.factor_2, label)
 
         e2e_m = build_sim_loop(code, mcfg, 5, "cuda")
         ms_m = cuda_ms(lambda: e2e_m(SEED, sigma40, 100), 2)
@@ -700,8 +781,9 @@ def main():
         print(f"OMS campaign, 3.6 dB: launches {oms_counts}")
         print("\n".join("  " + r for r in
                         (outdir / "Result.txt").read_text().splitlines()))
-        check(all(oms_counts[k] > 0 for k in "ABCE") and oms_counts["D"] == 0,
-              f"the OMS campaign did not launch A, B, C and E only: {oms_counts}")
+        check(all(oms_counts[k] > 0 for k in ("F", "C", "E", "emit"))
+              and oms_counts["A"] == oms_counts["B"] == oms_counts["D"] == 0,
+              f"the OMS campaign did not launch F, C and E only: {oms_counts}")
         dumped = (outdir / "errorindex.txt").read_text().splitlines()
         print(f"OMS dumped frames: {len(dumped)}")
         check(len(dumped) >= 1, "the OMS campaign dumped no failing frame")
@@ -718,6 +800,278 @@ def main():
     check(int(a["error_bits"]) == eb and int(a["error_frames"]) == ef > 0,
           "the OMS replay's error counts differ from the step's")
 
+    # ---- phase 11: the encoder ------------------------------------------------
+    n_info = code.n_info
+    u_cpu = philox.message_bits(SEED, 5, 0, BATCH, n_info, "cpu")
+    cw_cpu = make_encode_fn(code, "cpu")(u_cpu)
+    encode = make_encode_fn(code, dev)
+    u = philox.message_bits(SEED, 5, 0, BATCH, n_info, dev)
+    cw5 = encode(u)
+    torch.cuda.synchronize()
+    msg_diff = max_abs_diff([(u.cpu(), u_cpu)])
+    enc_diff = max_abs_diff([(cw5.cpu(), cw_cpu)])
+    syn = syndrome_weight(code, cw5)
+    print(f"encoder, batch {BATCH}: message bits vs CPU max_abs_err {msg_diff}, "
+          f"codewords vs CPU max_abs_err {enc_diff}, unsatisfied checks: max "
+          f"{int(syn.max())} over {BATCH} frames; ones {float(cw5.float().mean()):.4f}")
+    check(msg_diff == 0 and enc_diff == 0, "the encoder on the card differs from the CPU's")
+    check(int(syn.max()) == 0, "a codeword has an unsatisfied check")
+    ms_enc = cuda_ms(lambda: encode(u), 20)
+    ms_msg = cuda_ms(lambda: philox.message_bits(SEED, 5, 0, BATCH, n_info, dev), 10)
+    enc_bytes = BATCH * n_info + code.n_chk * n_info + BATCH * code.n_var
+    enc_ops = 2 * BATCH * n_info * code.n_chk
+    enc_bound = max(enc_bytes / PEAK_BYTES_PER_S, enc_ops / PEAK_INT8_OPS_PER_S) * 1e3
+    print(f"encoder at batch {BATCH} ({card}): torch._int_mm + parity {ms_enc:.4f} "
+          f"ms (a library call), bound {enc_bound:.4f} ms by operations "
+          f"({enc_bound / ms_enc:.1%}; {enc_ops:.4g} int8 ops at "
+          f"{PEAK_INT8_OPS_PER_S:.4g}/s); message bits (plain Philox) "
+          f"{ms_msg:.4f} ms")
+
+    # ---- phase 12: kernel F against its twin and against A then B -----------
+    sigma36 = sigma_for(cfg, 3.6)
+    params36 = cc.threshold_ints(cfg, sigma36).to(dev)
+    cw36 = encode(philox.message_bits(SEED, 1, 0, BATCH, n_info, dev))
+    toy_encode = make_encode_fn(toy, dev)
+    tcw = toy_encode(philox.message_bits(SEED, 0, 0, 64, toy.n_info, dev))
+    all_methods = (("FAID_DTBF", 2, 1, 6),) + OTHER_METHODS
+    err_f = 0
+    t_phase = time.perf_counter()
+    for label, m, f1, f2 in all_methods:
+        for mode in ("group", "frame"):
+            for c, prm, cwx, batch, kind in (
+                    (code, params36, None, BATCH, "full code, zero word"),
+                    (code, params36, cw36, BATCH, "full code, codewords"),
+                    (toy, tparams, None, 64, "toy code, zero word"),
+                    (toy, tparams, tcw, 64, "toy code, codewords")):
+                mcfg = dataclasses.replace(cfg, decode_method=DecodeMethod(m),
+                                           factor_1=f1, factor_2=f2, stop_mode=mode)
+                t = cd.decoder_tables(c, mcfg.decoder(), dev)
+                kw = dict(seed=SEED, rnd=1, batch=batch, mod_type=2, quant_bits=4,
+                          cw=cwx)
+                got = cs.fused_sim(prm, t, **kw)
+                a_out = cc.quantile_channel(prm, seed=SEED, rnd=1, batch=batch,
+                                            n_var=c.n_var, n_info=c.n_info,
+                                            mod_type=2, quant_bits=4, cw=cwx)
+                b_out = cd.stats_decode(a_out[0], t, cwx)
+                want = cs.fused_sim_plain(prm, c, t.dcfg, **kw)
+                torch.cuda.synchronize()
+                f = [got[k] for k in cs.COUNTERS]
+                d_twin = max_abs_diff(zip(f, (want[k] for k in cs.COUNTERS)))
+                d_ab = max_abs_diff(zip(f, (*b_out, *a_out[1:])))
+                d_b = max_abs_diff(zip(b_out, (want[k] for k in cs.COUNTERS[:3])))
+                rounds = got["bf_rounds"].view(-1, 32).amax(dim=1).float()
+                print(f"{label} {mode}, {kind}: kernel F vs twin max_abs_err "
+                      f"{d_twin}, vs A then B {d_ab}; B vs twin {d_b}; frames in "
+                      f"error {int((f[0] > 0).sum())}, mp_iters {int(f[1].sum())}, "
+                      f"BF rounds per word mean {float(rounds.mean()):.2f} max "
+                      f"{int(rounds.max())}")
+                check(d_twin == 0 and d_ab == 0 and d_b == 0,
+                      f"kernel F or B disagrees: {label} {mode}, {kind}")
+                check(m in (0, 1) or c is toy or int(f[2].sum()) > 0,
+                      f"{label}'s BF tail was not engaged in kernel F, {mode}")
+                err_f = max(err_f, d_twin, d_ab)
+                err_b = max(err_b, d_b)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 13: emit, then D or E, gives F's errors ----------------------
+    err_emit = 0
+    for label, m in (("FAID_DTBF", 2), ("OMS", 1)):
+        for cwx in (None, cw36):
+            mcfg = dataclasses.replace(cfg, decode_method=DecodeMethod(m),
+                                       fake_encode=cwx is None)
+            got = cs.build_fused_sim(code, mcfg, "cuda")(cwx, SEED, 1, sigma36)
+            llr_e, map_e = cs.build_fused_sim_emit(code, mcfg, "cuda")(
+                cwx, SEED, 1, sigma36)
+            llr_k, map_k = cc.quantile_channel_map(params36, seed=SEED, rnd=1,
+                                                   cw=cwx, **chm)
+            hard = build_decoder(code, mcfg.decoder())(llr_e)["hard"]
+            ref = torch.zeros_like(llr_e) if cwx is None else cwx
+            err = (hard[:, :n_info] ^ (ref[:, :n_info] != 0)).sum(dim=1, dtype=torch.int32)
+            torch.cuda.synchronize()
+            d_c = max_abs_diff([(llr_e, llr_k), (map_e, map_k)])
+            d_err = max_abs_diff([(err, got["err_bits"])])
+            print(f"emit + {'D' if m == 2 else 'E'} ({label}, "
+                  f"{'zero word' if cwx is None else 'codewords'}): err_bits vs "
+                  f"kernel F max_abs_err {d_err} ({int(err.sum())} bits); emit vs "
+                  f"kernel C max_abs_err {d_c}")
+            check(d_err == 0 and d_c == 0, f"the emit replay of {label} disagrees")
+            err_emit = max(err_emit, d_c)
+
+    # ---- phase 14: frame stop mode ------------------------------------------
+    for label, m, f1, f2 in all_methods:
+        mcfg = dataclasses.replace(cfg, decode_method=DecodeMethod(m), factor_1=f1,
+                                   factor_2=f2, stop_mode="frame")
+        mdcfg = mcfg.decoder()
+        t = cd.decoder_tables(code, mdcfg, dev)
+        if mdcfg.bf.kind != "none":
+            got2, want2, k2 = (cd.full_decode(llr36, t),
+                               cd.full_decode_plain(llr36, code, mdcfg), "D")
+        else:
+            got2, want2, k2 = (cd.mp_decode(llr36, t),
+                               cd.mp_decode_plain(llr36, code, mdcfg), "E")
+        torch.cuda.synchronize()
+        e2 = max_abs_diff(zip(got2, want2))
+        print(f"{label} frame mode, full code 3.6 dB: kernel {k2} vs plain "
+              f"max_abs_err {e2}, mp_iters {int(got2[1].sum())}")
+        check(e2 == 0, f"kernel {k2} differs from its twin in frame mode: {label}")
+        if k2 == "D":
+            err_d = max(err_d, e2)
+        else:
+            err_e = max(err_e, e2)
+        loop = build_sim_loop(code, mcfg, FER_ROUNDS, "cuda")
+        reset_counts()
+        fout = {k: v.tolist() for k, v in loop(SEED, sigma36, 0).items()}
+        f_counts = counts()
+        print(f"{label} frame mode build_sim_loop, 3.6 dB: {json.dumps(fout)} "
+              f"launches {f_counts}")
+        check(f_counts["F"] > 0 and f_counts["A"] == f_counts["B"] == 0,
+              f"{label}'s frame-mode loop launched kernels {f_counts}")
+        check(sum(fout["mp_hist"]) == sum(fout["bf_hist"]) == fout["test_frames"],
+              "histograms do not cover every frame")
+        check_fer(fout, METHOD_NAMES[m], f1, f2, f"{label} frame mode", "frame")
+        # kernel F's time in the two stop modes, in turns, on the same frames
+        gt = cd.decoder_tables(code, dataclasses.replace(mdcfg, stop_mode="group"), dev)
+        for snr, prm in ((3.6, params36), (4.0, params40)):
+            ms_fr, ms_gr = in_turns(
+                lambda: cs.fused_sim(prm, t, seed=SEED, rnd=9, batch=BATCH,
+                                     mod_type=2, quant_bits=4),
+                lambda: cs.fused_sim(prm, gt, seed=SEED, rnd=9, batch=BATCH,
+                                     mod_type=2, quant_bits=4), 3, 3)
+            print(f"{label} kernel F at {snr} dB ({card}), in turns: frame mode "
+                  f"{ms_fr:.4f} ms, group mode {ms_gr:.4f} ms ({ms_fr / ms_gr:.4f} x)")
+
+    # ---- phase 15: the main path with real codewords ------------------------
+    rcfg = dataclasses.replace(cfg, fake_encode=False)
+    reset_counts()
+    rout = build_sim_loop(code, rcfg, FER_ROUNDS, "cuda")(SEED, sigma36, 0)
+    torch.cuda.synchronize()
+    r_counts = counts()
+    rout = {k: v.tolist() for k, v in rout.items()}
+    print(f"main path with codewords, 3.6 dB: {json.dumps(rout)} launches {r_counts}")
+    check(r_counts["F"] > 0 and r_counts["A"] == r_counts["B"] == 0,
+          f"the codeword path launched kernels {r_counts}")
+    check_fer(rout, "FAID_DTBF", 1, 6, "main path with codewords")
+    e2e_r = build_sim_loop(code, rcfg, e2e_rounds, "cuda")
+    ms_r, ms_z = in_turns(lambda: e2e_r(SEED, sigma_for(cfg, 4.0), 100),
+                          lambda: e2e(SEED, sigma_for(cfg, 4.0), 100), 3, 3)
+    mbit_r = e2e_rounds * BATCH * n_info / (ms_r * 1e-3) / 1e6
+    mbit_z = e2e_rounds * BATCH * n_info / (ms_z * 1e-3) / 1e6
+    print(f"main path at 4.0 dB, batch {BATCH} ({card}), in turns: codewords "
+          f"{ms_r / e2e_rounds:.4f} ms/round = {mbit_r:.1f} Mbit/s, zero word "
+          f"{ms_z / e2e_rounds:.4f} ms/round = {mbit_z:.1f} Mbit/s")
+    # the same frames decoded as codewords and as the all-zero word
+    c40, z40 = (dict((k, v.tolist()) for k, v in f(SEED, sigma_for(cfg, 4.0), 100).items())
+                for f in (e2e_r, e2e))
+    print("10 rounds at 4.0 dB, codewords / zero word: " + ", ".join(
+        f"{k} {c40[k]} / {z40[k]}" for k in ("error_frames", "error_bits", "mp_iters",
+                                            "bf_rounds")))
+    # where a round's device time goes: torch.profiler over the 10 rounds
+    # of each loop, after the timings above warmed them up; kernels only
+    # (an operator's entry repeats its kernels' device time)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for what, fn in (("codewords", lambda: e2e_r(SEED, sigma_for(cfg, 4.0), 100)),
+                     ("zero word", lambda: e2e(SEED, sigma_for(cfg, 4.0), 100))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.self_device_time_total / 1e3 / e2e_rounds, e.count, e.key)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+        busy = sum(r[0] for r in rows)
+        print(f"profile of the {what} loop at 4.0 dB ({card}), per round: wall "
+              f"{wall_ms / e2e_rounds:.4f} ms, device busy {busy:.4f} ms (idle "
+              f"{1 - busy * e2e_rounds / wall_ms:.1%} of the wall time); top: "
+              + "; ".join(f"{k[:48]} x{c // e2e_rounds} {ms:.4f} ms" for ms, c, k in rows[:8]))
+
+    # ---- phase 16: the campaign path with real codewords --------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        outdir = Path(tmp) / "codewords"
+        argv = ["--method", "2", "--channel-backend", "fused", "--stop-mode",
+                "group", "--batch", str(BATCH), "--snr-start", "3.6",
+                "--snr-pass", "0.1", "--snr-end", "3.8", "--min-frames",
+                str(FER_ROUNDS * BATCH), "--seed", str(SEED), "--collect-errors",
+                "--quiet", "--out", str(outdir)]
+        reset_counts()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        rc_counts = counts()
+        check(rc == 0, f"the codeword campaign returned {rc}")
+        print(f"CLI sweep with codewords 3.6-3.7 dB: launches {rc_counts}")
+        check(all(rc_counts[k] > 0 for k in ("F", "C", "D", "emit"))
+              and rc_counts["A"] == rc_counts["B"] == 0,
+              f"the codeword campaign did not launch F, C and D: {rc_counts}")
+        table = (outdir / "Result.txt").read_text().splitlines()
+        print("\n".join("  " + r for r in table))
+        ck = json.loads((outdir / "checkpoint.json").read_text())
+        c36 = ck["results"][0]["counters"]
+        check(c36 == rout, "the codeword campaign's 3.6 dB counters differ from "
+                           "the main path's")
+        dumped = (outdir / "errorindex.txt").read_text().splitlines()
+        check(len(dumped) >= 1, "the codeword campaign dumped no failing frame")
+        reset_counts()
+        check(cli.main(argv) == 0, "the resumed codeword campaign failed")
+        check(counts()["F"] == 0, "the codeword rerun did not resume")
+        check([r.split()[:7] for r in (outdir / "Result.txt").read_text().splitlines()]
+              == [r.split()[:7] for r in table], "the resumed Result.txt differs")
+    tag, pos = dumped[0].split(" : ")
+    words = tag.split()
+    check(words[1] == "3.60", f"the first dumped frame is not at 3.6 dB: {tag}")
+    r0, f0 = int(words[5]), int(words[7])
+    sr = philox.stream_round(0, r0)
+    dbg = build_debug_step(code, rcfg, "cuda")(SEED, sr, sigma36)
+    step = build_sim_step(code, rcfg, "cuda")(SEED, sr, sigma36)
+    want_cw = encode(philox.message_bits(SEED, sr, 0, BATCH, n_info, dev))
+    torch.cuda.synchronize()
+    bad = torch.nonzero(dbg["hard"][f0, :n_info] != (dbg["cw"][f0, :n_info] != 0))
+    positions = " ".join(f"b{p // code.z + 1}+{p % code.z}" for p in bad.view(-1).tolist())
+    eb, ef = int(dbg["err_bits"].sum()), int((dbg["err_bits"] > 0).sum())
+    print(f"codeword replay of round {r0} at 3.6 dB: step error_bits "
+          f"{int(step['error_bits'])} frames {int(step['error_frames'])}, debug "
+          f"{eb} / {ef}; the replay's codewords are the encoder's: "
+          f"{torch.equal(dbg['cw'], want_cw)}, unsatisfied checks "
+          f"{int(syndrome_weight(code, dbg['cw']).max())}; frame {f0}'s dumped "
+          f"positions equal the replay's: {positions == pos}")
+    check(torch.equal(dbg["cw"], want_cw) and int(dbg["cw"].sum()) > 0,
+          "the replay's codewords are not the encoder's")
+    check(positions == pos, "the dumped error positions differ from the replay's")
+    check(int(step["error_bits"]) == eb and int(step["error_frames"]) == ef > 0,
+          "the codeword replay's error counts differ from the step's")
+
+    fcfg = dataclasses.replace(rcfg, stop_mode="frame")
+    with tempfile.TemporaryDirectory() as tmp:
+        outdir = Path(tmp) / "frame"
+        argv = ["--method", "2", "--channel-backend", "fused", "--stop-mode",
+                "frame", "--batch", str(BATCH), "--snr-start", "3.6",
+                "--snr-pass", "0.1", "--snr-end", "3.65", "--min-frames",
+                str(FER_ROUNDS * BATCH), "--seed", str(SEED), "--collect-errors",
+                "--quiet", "--out", str(outdir)]
+        reset_counts()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        fr_counts = counts()
+        check(rc == 0, f"the frame-mode campaign returned {rc}")
+        ck = json.loads((outdir / "checkpoint.json").read_text())
+        cf = ck["results"][0]["counters"]
+        print(f"CLI frame mode with codewords, 3.6 dB: launches {fr_counts}")
+        print("\n".join("  " + r for r in
+                        (outdir / "Result.txt").read_text().splitlines()))
+        check(fr_counts["F"] > 0 and fr_counts["D"] > 0,
+              f"the frame-mode campaign launched {fr_counts}")
+        check_fer(cf, "FAID_DTBF", 1, 6, "CLI frame mode with codewords", "frame")
+        r0 = ck["results"][0]["err_chunks"][0][0]
+    sr = philox.stream_round(0, r0)
+    a = build_sim_step(code, fcfg, "cuda")(SEED, sr, sigma36)
+    b = build_debug_step(code, fcfg, "cuda")(SEED, sr, sigma36)
+    eb, ef = int(b["err_bits"].sum()), int((b["err_bits"] > 0).sum())
+    print(f"frame-mode codeword replay of round {r0}: step error_bits "
+          f"{int(a['error_bits'])} frames {int(a['error_frames'])}, debug {eb} / {ef}")
+    check(int(a["error_bits"]) == eb and int(a["error_frames"]) == ef > 0,
+          "the frame-mode replay's error counts differ from the step's")
+
     def entry(name, key, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -727,10 +1081,10 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("quantile_channel", "A", "faid_tpu_torch/csrc/quantile_channel.cu",
-              "faid_tpu/ops/pallas_channel.py:515", main_counts["A"], err_a,
+              "faid_tpu/ops/pallas_channel.py:515", ab_counts["A"], err_a,
               ms_a, plain_a),
         entry("stats_decoder", "B", "faid_tpu_torch/csrc/stats_decoder.cu",
-              "faid_tpu/ops/pallas_decoder.py:875", main_counts["B"], err_b,
+              "faid_tpu/ops/pallas_decoder.py:875", ab_counts["B"], err_b,
               ms_b, plain_b),
         entry("quantile_channel_map", "C",
               "faid_tpu_torch/csrc/quantile_channel.cu",
@@ -742,6 +1096,12 @@ def main():
         entry("mp_decoder", "E", "faid_tpu_torch/csrc/mp_decoder.cu",
               "faid_tpu/ops/pallas_decoder.py:728", oms_counts["E"], err_e,
               ms_e, plain_e),
+        entry("fused_sim", "F", "faid_tpu_torch/csrc/fused_sim.cu",
+              "faid_tpu/ops/pallas_decoder.py:975", main_counts["F"], err_f,
+              ms_f, plain_f),
+        entry("fused_sim_emit", "emit", "faid_tpu_torch/csrc/quantile_channel.cu",
+              "faid_tpu/ops/pallas_decoder.py:1098", cli_counts["emit"], err_emit,
+              ms_emit, plain_emit),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,22 @@ It mirrors ``faid_tpu``'s layout and module names.  Plain tensor code is
 PyTorch; each TPU kernel on the ported paths is a hand-written CUDA
 kernel in ``csrc/``, built with nvcc at first use:
 
-  A  quantile channel + ModCalErr counts   ops/cuda_channel.py  (sweep)
-  B  stats decoder                         ops/cuda_decoder.py  (sweep)
-  C  quantile channel + ModCalErr map      ops/cuda_channel.py  (replay)
+  A  quantile channel + ModCalErr counts   ops/cuda_channel.py  (sweep,
+                                           where F does not take the
+                                           round)
+  B  stats decoder                         ops/cuda_decoder.py  (same)
+  C  quantile channel + ModCalErr map      ops/cuda_channel.py  (replay,
+                                           also as ops/cuda_sim.py
+                                           ``fused_sim_emit``)
   D  full decoder (hard decisions)         ops/cuda_decoder.py  (replay,
                                            methods with a BF tail)
   E  MP-only decoder (final LLRs)          ops/cuda_decoder.py  (replay,
                                            NMS and OMS)
+  F  the whole round: channel, decoder     ops/cuda_sim.py      (sweep)
+     and the five per-frame counters
+
+Real codewords come from the message stream (ops/philox.py) through the
+encoder (code/encoder.py), a PyTorch int8 matrix product.
 
 It imports torch and numpy, never JAX.  Entry points run on ``cuda``
 unless the caller asks for the CPU, where each kernel's plain twin runs.

@@ -1,7 +1,7 @@
 """Command-line entry point: the reference's ``main()`` (reference
 main.cpp:17-231) on one GPU, ``faid_tpu.cli`` for the PyTorch port.
 
-    python -m faid_tpu_torch.cli --method 2 --fake-encode \\
+    python -m faid_tpu_torch.cli --method 2 \\
         --channel-backend fused --stop-mode group --batch 2048 \\
         --snr-start 3.6 --snr-pass 0.1 --snr-end 3.8 --min-frames 16384 \\
         --collect-errors --out OUT
@@ -49,7 +49,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--min-frames", type=int)
     ap.add_argument("--min-frame-errors", type=int)
     ap.add_argument("--fake-encode", action="store_true",
-                    help="all-zero codeword path (reference FAKE_ENCODE)")
+                    help="all-zero codeword path (reference FAKE_ENCODE); "
+                         "without it each round encodes random messages")
     ap.add_argument("--lut-family", type=str, default=None,
                     choices=["faid3", "faid32", "faid2"],
                     help="FAID V2C LUT family for method 2 "
@@ -64,10 +65,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--stop-mode", type=str, default="group",
                     choices=["frame", "group"],
                     help="early-stop granularity. Default 'group' = the "
-                         "reference's 32-frame-SIMD-word semantics, the "
-                         "only mode of the decoder kernels; 'frame' "
-                         "freezes each frame individually (--device cpu "
-                         "only, not ported to the kernels yet)")
+                         "reference's 32-frame-SIMD-word semantics; "
+                         "'frame' freezes each frame individually")
     ap.add_argument("--itercount-ref-format", action="store_true",
                     help="write iterCount.txt as the reference's "
                          "'rounds: count' lines (CSimulate.cpp:171-179) "

@@ -19,12 +19,14 @@ launches a kernel on a CUDA tensor: the full decoder, kernel D
 (ops/cuda_decoder.py ``full_decode``), for a method with a BF tail, the
 MP-only decoder, kernel E (``mp_decode``), for one without.  The plain
 twins of the kernels call it with ``"plain"``.  ``build_stats_decoder``
-is the Monte-Carlo hot path: on a CUDA tensor it launches the stats
-decoder kernel, kernel B; on a CPU tensor it takes that kernel's plain
-twin, the plain ``build_decoder`` plus the info-bit error count.
+is the Monte-Carlo round's decoder where kernel F does not take the
+whole round: on a CUDA tensor it launches the stats decoder kernel,
+kernel B; on a CPU tensor it takes that kernel's plain twin, the plain
+``build_decoder`` plus the info-bit error count against the reference
+word.
 
-Not ported: FAID's EF 2.  The plain path runs both stop modes, the
-kernels group stop mode.
+Not ported: FAID's EF 2.  The plain path and the kernels run both stop
+modes.
 """
 
 from __future__ import annotations
@@ -228,20 +230,21 @@ def _build_plain_decoder(code: QCCode, dcfg: DecoderConfig):
 
 
 def build_stats_decoder(code: QCCode, dcfg: DecoderConfig, device):
-    """Counter-producing decoder for the Monte-Carlo hot path, for the
-    all-zero codeword.
+    """Counter-producing decoder for the Monte-Carlo round.
 
-    Returns decode_stats(llr [batch, n_var] int8 on ``device``) ->
-    dict(err_bits, mp_iters, bf_rounds), each [batch] int32.  A CUDA
-    ``llr`` goes through the stats decoder kernel, a CPU one through its
-    plain twin (ops/cuda_decoder.py)."""
+    Returns decode_stats(llr [batch, n_var] int8 on ``device``, ref_bits
+    [batch, >= n_info] int8 or bool | None) -> dict(err_bits, mp_iters,
+    bf_rounds), each [batch] int32, the errors counted against
+    ``ref_bits`` (the codeword, or its info bits; None: the all-zero
+    word).  A CUDA ``llr`` goes through the stats decoder kernel, a CPU
+    one through its plain twin (ops/cuda_decoder.py)."""
     from ..ops import cuda_decoder
 
     warn_nms_factors(dcfg)
     tables = cuda_decoder.decoder_tables(code, dcfg, device)
 
-    def decode_stats(llr: torch.Tensor) -> dict:
-        err, iters, rounds = cuda_decoder.stats_decode(llr, tables)
+    def decode_stats(llr: torch.Tensor, ref_bits=None) -> dict:
+        err, iters, rounds = cuda_decoder.stats_decode(llr, tables, ref_bits)
         return {"err_bits": err, "mp_iters": iters, "bf_rounds": rounds}
 
     return decode_stats

@@ -82,6 +82,20 @@ def threshold_ints(cfg, sigma: float) -> torch.Tensor:
     return torch.cat([A, B, H[None]]).to(torch.int32)
 
 
+class ThresholdCache:
+    """``threshold_ints(cfg, sigma)`` on ``device``, made once per sigma:
+    a copy from pageable host memory each round would hold the host to
+    the device."""
+
+    def __init__(self, cfg, device):
+        self.cfg, self.device, self.cache = cfg, torch.device(device), {}
+
+    def __call__(self, sigma: float) -> torch.Tensor:
+        if sigma not in self.cache:
+            self.cache[sigma] = threshold_ints(self.cfg, sigma).to(self.device)
+        return self.cache[sigma]
+
+
 def staircase(ix: torch.Tensor, mask: torch.Tensor, params: torch.Tensor,
               quant_bits: int):
     """int32 words -> (int8 LLR, int8 pre-decoder error indicator).

@@ -1,8 +1,10 @@
 """The decoder kernels (``faid_tpu.ops.pallas_decoder``):
 
-  stats_decode  per-frame info-bit error count, mp_iters, bf_rounds:
-                kernel B (``make_stats_decoder``), the Monte-Carlo sweep's
-                decoder, every method
+  stats_decode  per-frame info-bit error count against a reference word,
+                mp_iters, bf_rounds: kernel B (``make_stats_decoder``),
+                the Monte-Carlo round's decoder where kernel F
+                (ops/cuda_sim.py) does not take the whole round, every
+                method
   full_decode   hard decisions [B, n_var], mp_iters, bf_rounds: kernel D
                 (``make_full_decoder``), build_decoder's kernel path and
                 the forensic replay's decoder for the methods with a BF
@@ -11,18 +13,18 @@
                 (``make_mp_decoder``), the same for the methods without
                 one (NMS, OMS)
 
-The three kernels are one template (csrc/decoder.cuh) over the output,
-the check-node style and the BF kind, instantiated for the (style, BF
-kind) pairs ``DecoderConfig.for_method`` produces (``KERNEL_PAIRS``).
+The three kernels, and kernel F, are one template (csrc/decoder.cuh)
+over the output, the check-node style, the BF kind and the stop mode,
+instantiated for the (style, BF kind) pairs ``DecoderConfig.for_method``
+produces (``KERNEL_PAIRS``), in both stop modes.
 Each wrapper launches its kernel on a CUDA tensor and takes its plain
 twin (``*_plain``) on a CPU tensor.  The twins are the composition of
 the plain modules (decoders/core.py ``build_decoder(backend="plain")``:
 syndrome, row updates, BF), plus the error count for B; each agrees with
 its kernel bit for bit.
 
-The kernels run group stop mode, codes of row degree <= ``MAX_DEG``,
-and, for kernel B, the all-zero reference word.  Other configurations
-raise before any launch.
+The kernels run codes of row degree <= ``MAX_DEG``; other
+configurations raise before any launch.
 """
 
 from __future__ import annotations
@@ -135,14 +137,17 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
         lut_ef=lut_ef)
 
 
-def stats_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
+def stats_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig,
+                       ref: torch.Tensor | None = None):
     """Plain PyTorch twin of kernel B on ``llr``'s device:
     (err_bits, mp_iters, bf_rounds), each [batch] int32."""
     from ..decoders.core import build_decoder
 
     out = build_decoder(code, dcfg, backend="plain")(llr)
-    err = out["hard"][:, :code.n_info].sum(dim=1, dtype=torch.int32)
-    return err, out["mp_iters"], out["bf_rounds"]
+    hard = out["hard"][:, :code.n_info]
+    if ref is not None:
+        hard = hard ^ (ref[:, :code.n_info] != 0)
+    return hard.sum(dim=1, dtype=torch.int32), out["mp_iters"], out["bf_rounds"]
 
 
 def full_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
@@ -166,14 +171,18 @@ def mp_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
 def _kernel_scratch(llr: torch.Tensor, tables: DecoderTables):
     """Check what the decoder kernels take; returns their scratch (en,
     msgs)."""
-    code, dcfg = tables.code, tables.dcfg
-    batch = llr.shape[0]
-    if (llr.dtype != torch.int8 or llr.shape != (batch, code.n_var)
+    code = tables.code
+    if (llr.dtype != torch.int8 or llr.shape != (llr.shape[0], code.n_var)
             or not llr.is_contiguous()):
         raise ValueError("llr must be a contiguous int8 [batch, n_var] tensor")
-    if dcfg.stop_mode != "group":
-        raise NotImplementedError("the decoder kernels run group stop mode "
-                                  "only")
+    return word_scratch(llr.shape[0], tables, llr.device)
+
+
+def word_scratch(batch: int, tables: DecoderTables, device):
+    """Check the batch and the code against the template's bounds; returns
+    its scratch on ``device``: en [batch, n_var] and msgs [batch,
+    n_entries, z], int8."""
+    code = tables.code
     if batch % GROUP or batch == 0:
         raise ValueError(f"batch must be a positive multiple of {GROUP}")
     if code.max_deg > MAX_DEG or code.n_var % code.z:
@@ -182,11 +191,11 @@ def _kernel_scratch(llr: torch.Tensor, tables: DecoderTables):
     if GROUP * code.n_block_rows * code.z > SMEM_LIMIT:
         raise NotImplementedError("the word's check map exceeds shared memory")
     msgs = torch.empty((batch, int(tables.ent_col.numel()), code.z),
-                       dtype=torch.int8, device=llr.device)
-    return torch.empty_like(llr), msgs
+                       dtype=torch.int8, device=device)
+    return torch.empty((batch, code.n_var), dtype=torch.int8, device=device), msgs
 
 
-def _code_args(tables: DecoderTables):
+def code_args(tables: DecoderTables):
     """The kernels' code tables and parameters (csrc/decoder.cuh
     ``CodeArgs``), and the current stream."""
     from ..utils import kernels
@@ -221,38 +230,63 @@ def _on_kernel_device(llr: torch.Tensor, tables: DecoderTables) -> bool:
     return llr.device.type == "cuda"
 
 
-def _hard_scratch(llr: torch.Tensor, bf: int):
+def hard_scratch(llr: torch.Tensor, bf: int):
     """The BF tail's hard bits (None without a tail) and the 2B1C
     reliability bits (None for another kind)."""
     return (torch.empty_like(llr) if bf != BF_IDS["none"] else None,
             torch.empty_like(llr) if bf == BF_IDS["dtbf2b1c"] else None)
 
 
-def _ptr(t: torch.Tensor | None):
+def ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def stats_decode(llr: torch.Tensor, tables: DecoderTables):
-    """Decode ``llr`` [batch, n_var] int8 against the all-zero word:
-    (err_bits, mp_iters, bf_rounds), each [batch] int32.  A CPU tensor
-    takes the plain twin; a CUDA tensor launches kernel B."""
+def frame_mode(dcfg: DecoderConfig) -> int:
+    """The kernels' stop-mode flag: 1 for frame stop mode, 0 for group."""
+    return int(dcfg.stop_mode == "frame")
+
+
+def reference_word(ref, batch: int, n_info: int, device):
+    """``ref`` [batch, >= n_info] (int8 or bool, contiguous) as the int8
+    tensor the kernels read a row of, or None for the all-zero word."""
+    if ref is None:
+        return None
+    if ref.dtype == torch.bool:
+        ref = ref.view(torch.int8)
+    if (ref.dtype != torch.int8 or ref.dim() != 2 or ref.shape[0] != batch
+            or ref.shape[1] < n_info or ref.device != device
+            or not ref.is_contiguous()):
+        raise ValueError(f"the reference word must be a contiguous int8 or "
+                         f"bool [batch, >= {n_info}] tensor on {device}")
+    return ref
+
+
+def stats_decode(llr: torch.Tensor, tables: DecoderTables,
+                 ref: torch.Tensor | None = None):
+    """Decode ``llr`` [batch, n_var] int8 and count each frame's info-bit
+    errors against ``ref`` [batch, >= n_info] (the codeword, or its info
+    bits; None: the all-zero word): (err_bits, mp_iters, bf_rounds), each
+    [batch] int32.  A CPU tensor takes the plain twin; a CUDA tensor
+    launches kernel B."""
+    ref = reference_word(ref, llr.shape[0], tables.code.n_info, llr.device)
     if not _on_kernel_device(llr, tables):
-        return stats_decode_plain(llr, tables.code, tables.dcfg)
+        return stats_decode_plain(llr, tables.code, tables.dcfg, ref)
     style, bf = kernel_ids(tables.dcfg)
     en, msgs = _kernel_scratch(llr, tables)
     from ..utils import kernels
 
     lib = kernels.library()
     batch = llr.shape[0]
-    hard, hard2 = _hard_scratch(llr, bf)
+    hard, hard2 = hard_scratch(llr, bf)
     err, iters, rounds = (torch.empty(batch, dtype=torch.int32,
                                       device=llr.device) for _ in range(3))
     with torch.cuda.device(llr.device):
-        args, stream = _code_args(tables)
+        args, stream = code_args(tables)
         status = lib.faid_stats_decoder(
-            style, bf, llr.data_ptr(), en.data_ptr(), msgs.data_ptr(),
-            _ptr(hard), _ptr(hard2), err.data_ptr(), iters.data_ptr(),
-            rounds.data_ptr(), args, batch, stream)
+            style, bf, frame_mode(tables.dcfg), llr.data_ptr(), en.data_ptr(),
+            msgs.data_ptr(), ptr(hard), ptr(hard2), err.data_ptr(),
+            iters.data_ptr(), rounds.data_ptr(), ptr(ref),
+            0 if ref is None else ref.shape[1], args, batch, stream)
     stats_decode.launches += 1
     kernels.check(status)
     return err, iters, rounds
@@ -277,15 +311,15 @@ def full_decode(llr: torch.Tensor, tables: DecoderTables):
 
     lib = kernels.library()
     batch = llr.shape[0]
-    hard, hard2 = _hard_scratch(llr, bf)
+    hard, hard2 = hard_scratch(llr, bf)
     iters, rounds = (torch.empty(batch, dtype=torch.int32, device=llr.device)
                      for _ in range(2))
     with torch.cuda.device(llr.device):
-        args, stream = _code_args(tables)
+        args, stream = code_args(tables)
         status = lib.faid_full_decoder(
-            style, bf, llr.data_ptr(), en.data_ptr(), msgs.data_ptr(),
-            hard.data_ptr(), _ptr(hard2), iters.data_ptr(), rounds.data_ptr(),
-            args, batch, stream)
+            style, bf, frame_mode(tables.dcfg), llr.data_ptr(), en.data_ptr(),
+            msgs.data_ptr(), hard.data_ptr(), ptr(hard2), iters.data_ptr(),
+            rounds.data_ptr(), args, batch, stream)
     full_decode.launches += 1
     kernels.check(status)
     return hard, iters, rounds
@@ -310,10 +344,10 @@ def mp_decode(llr: torch.Tensor, tables: DecoderTables):
     lib = kernels.library()
     iters = torch.empty(llr.shape[0], dtype=torch.int32, device=llr.device)
     with torch.cuda.device(llr.device):
-        args, stream = _code_args(tables)
+        args, stream = code_args(tables)
         status = lib.faid_mp_decoder(
-            style, llr.data_ptr(), en.data_ptr(), msgs.data_ptr(),
-            iters.data_ptr(), args, llr.shape[0], stream)
+            style, frame_mode(tables.dcfg), llr.data_ptr(), en.data_ptr(),
+            msgs.data_ptr(), iters.data_ptr(), args, llr.shape[0], stream)
     mp_decode.launches += 1
     kernels.check(status)
     return en, iters

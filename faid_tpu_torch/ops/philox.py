@@ -1,4 +1,5 @@
-"""Philox4x32-10 counter-based generator: the channel's random stream.
+"""Philox4x32-10 counter-based generator: the random streams of a round,
+the channel's words and the message bits.
 
 Replaces the TPU kernels' hardware PRNG (``pltpu.prng_random_bits``) and
 the portable threefry draws of ``faid_tpu.ops.pallas_channel``.  Neither
@@ -26,8 +27,19 @@ Monte-Carlo round ``rnd`` of SNR point ``snr_idx`` the stream round
 the counterpart of the JAX runner's fold_in(fold_in(key(seed),
 snr_idx), rnd).  Nothing depends on the batch size, the block size or
 the launch geometry, so any frame of any round can be replayed exactly.
-The channel uses the word bit-cast to int32 (``ix``).  ``STREAM_TAG``
-names this contract; checkpoints record it (sim/runner.py).
+The channel uses the word bit-cast to int32 (``ix``).
+
+The message bits of a round with real codewords (``message_bits``,
+the counterpart of the JAX pipeline's ``_random_message_bits``) come
+from the same generator in a disjoint counter domain, the top bit of
+counter word 0 set (the channel's ``bit // 4`` stays below 2^31):
+
+  counter = (2^31 | (j // 128), frame, round mod 2^32, round >> 32)
+  bit j   = (w[(j // 32) mod 4] >> (j mod 32)) & 1
+
+so a replay regenerates any round's messages, and the channel's words
+are the same with or without them.  ``STREAM_TAG`` names this contract
+(both streams); checkpoints record it (sim/runner.py).
 
 Philox4x32-10 is Random123's (Salmon et al., SC'11): ten rounds of
 ``(c0, c1, c2, c3) -> (hi(M1*c2) ^ c1 ^ k0, lo(M1*c2), hi(M0*c0) ^ c3 ^ k1,
@@ -45,7 +57,8 @@ M0, M1 = 0xD2511F53, 0xCD9E8D57        # round multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
 ROUNDS = 10
 _MASK = 0xFFFFFFFF
-STREAM_TAG = "philox4x32-10/v1"
+STREAM_TAG = "philox4x32-10/v2"
+_MESSAGE_DOMAIN = 1 << 31                # counter word 0's top bit
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -91,18 +104,41 @@ def stream_round(snr_idx: int, rnd: int) -> int:
     return (snr_idx << 32) | rnd
 
 
+def _words(seed: int, rnd: int, frame0: int, batch: int, c0: torch.Tensor):
+    """[batch, len(c0), 4] int64: the Philox words of counters (c0, frame,
+    round) for frames ``frame0 .. frame0 + batch - 1``."""
+    check_stream_args(seed, rnd, frame0, batch)
+    i64 = dict(dtype=torch.int64, device=c0.device)
+    c1 = torch.arange(frame0, frame0 + batch, **i64)[:, None]
+    c0, c1 = torch.broadcast_tensors(c0[None, :], c1)
+    c2 = torch.full((1, 1), rnd & _MASK, **i64)
+    c3 = torch.full((1, 1), rnd >> 32, **i64)
+    return torch.stack(philox4x32(c0, c1, c2, c3, seed & _MASK, seed >> 32),
+                       dim=-1)
+
+
 def channel_words(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
                   device) -> torch.Tensor:
     """[batch, n_bits] int32: the stream's words for frames
     ``frame0 .. frame0 + batch - 1`` of round ``rnd``."""
-    check_stream_args(seed, rnd, frame0, batch)
     groups = -(-n_bits // 4)
-    i64 = dict(dtype=torch.int64, device=device)
-    c0 = torch.arange(groups, **i64)[None, :]
-    c1 = torch.arange(frame0, frame0 + batch, **i64)[:, None]
-    c2 = torch.full((1, 1), rnd & _MASK, **i64)
-    c3 = torch.full((1, 1), rnd >> 32, **i64)
-    c0, c1 = torch.broadcast_tensors(c0, c1)
-    w = torch.stack(philox4x32(c0, c1, c2, c3, seed & _MASK, seed >> 32),
-                    dim=-1)
+    w = _words(seed, rnd, frame0, batch,
+               torch.arange(groups, dtype=torch.int64, device=device))
     return _as_int32(w.reshape(batch, groups * 4)[:, :n_bits])
+
+
+def message_bits(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
+                 device) -> torch.Tensor:
+    """[batch, n_bits] int8 0/1: the message bits of frames ``frame0 ..
+    frame0 + batch - 1`` of round ``rnd``, 128 bits per Philox call."""
+    calls = -(-n_bits // 128)
+    if calls > _MESSAGE_DOMAIN:
+        raise ValueError(f"{n_bits} message bits exceed the stream's domain")
+    w = _as_int32(_words(seed, rnd, frame0, batch, _MESSAGE_DOMAIN | torch.arange(
+        calls, dtype=torch.int64, device=device)))
+    # bit j of word k is bit j % 8 of the word's little-endian byte j // 8,
+    # so the call's 16 bytes, bit by bit, are its 128 bits in order
+    octets = w.view(torch.uint8)                 # [batch, calls, 16]
+    shifts = torch.arange(8, dtype=torch.uint8, device=device)
+    bits = (octets[..., None] >> shifts) & 1     # [batch, calls, 16, 8]
+    return bits.reshape(batch, calls * 128)[:, :n_bits].to(torch.int8)

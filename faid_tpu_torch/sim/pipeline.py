@@ -1,21 +1,31 @@
-"""One Monte-Carlo round: channel -> decode -> counters, and its
-forensic replay (``faid_tpu.sim.pipeline``).
+"""One Monte-Carlo round: messages -> encode -> channel -> decode ->
+counters, and its forensic replay (``faid_tpu.sim.pipeline``).
 
-The port runs the all-zero codeword (``fake_encode``) through the fused
-quantile channel (``channel_backend="fused"``, BPSK/QPSK) and any of the
-six decoders.  On a CUDA device:
+The port runs the fused quantile channel (``channel_backend="fused"``,
+BPSK/QPSK) with the all-zero codeword (``fake_encode``) or real ones,
+any of the six decoders, in either stop mode.  On a CUDA device:
 
-  build_sim_step / build_sim_loop   kernel A (channel + ModCalErr counts)
-                                    then kernel B (stats decoder); every
-                                    counter stays on the device
-  build_debug_step                  kernel C (channel + ModCalErr map)
-                                    then kernel D (hard decisions, a BF
-                                    tail) or kernel E (MP only, NMS and
-                                    OMS): the same round's frames, exactly
+  build_sim_step / build_sim_loop   kernel F, the whole round in one
+                                    kernel (ops/cuda_sim.py), wherever
+                                    ``supports_sim`` holds (the JAX
+                                    package's ``_resolve_fused_sim``);
+                                    else kernel A (channel + ModCalErr
+                                    counts) then kernel B (stats
+                                    decoder).  Every counter stays on
+                                    the device
+  build_debug_step                  the same frames' LLRs (kernel C,
+                                    through ``fused_sim_emit`` where F
+                                    ran the round), then kernel D (hard
+                                    decisions, a BF tail) or kernel E
+                                    (MP only, NMS and OMS): the same
+                                    round's frames, exactly
 
-``rnd`` is the channel stream's 64-bit round (ops/philox.py); the SNR
-sweep passes ``philox.stream_round(snr_idx, round)`` to both, so a
-replay redraws the sweep's LLRs bit for bit.
+With real codewords the round's message bits come from the message
+stream (``philox.message_bits``) and go through the encoder
+(code/encoder.py); the replay regenerates them.  ``rnd`` is the stream's
+64-bit round (ops/philox.py); the SNR sweep passes
+``philox.stream_round(snr_idx, round)`` to both, so a replay redraws the
+sweep's frames bit for bit.
 
 Counters per round (the reference's CalculateErrors and ModCalErr):
   error_bits       decoded info-bit errors
@@ -32,11 +42,14 @@ from typing import Callable
 
 import torch
 
+from ..code.encoder import make_encode_fn
 from ..code.qc_matrix import QCCode
 from ..config import SimConfig
 from ..decoders.core import build_decoder, build_stats_decoder, check_backend
-from ..ops.cuda_channel import (quantile_channel, quantile_channel_map,
-                                threshold_ints)
+from ..ops import philox
+from ..ops.cuda_channel import (ThresholdCache, quantile_channel,
+                                quantile_channel_map)
+from ..ops.cuda_sim import build_fused_sim, build_fused_sim_emit, supports_sim
 from ..ops.fixed_point import _QUANT_LIMITS
 
 
@@ -49,24 +62,16 @@ def _histogram(x: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def check_ported(cfg: SimConfig, device) -> None:
-    """Raise NotImplementedError, naming the CLI flag to change, for a
-    round outside this slice on ``device``.  On a CUDA device the round
-    runs the kernels only: their group stop mode, never the plain path."""
+    """Raise, naming the CLI flag to change, for a round outside the port
+    on ``device``: NotImplementedError for what is not ported yet, and
+    ValueError for the plain backend on a CUDA device, where a round runs
+    the kernels only."""
     check_backend(cfg.backend)
-    if torch.device(device).type == "cuda":
-        if cfg.stop_mode != "group":
-            raise NotImplementedError(
-                f"stop_mode={cfg.stop_mode!r} is not ported to the CUDA "
-                "kernels yet: pass --stop-mode group, or --device cpu")
-        if cfg.backend != "auto":
-            raise ValueError(
-                f"backend={cfg.backend!r} runs the plain PyTorch path, which "
-                "the port runs on the CPU only: pass --backend auto, or "
-                "--device cpu")
-    if not cfg.fake_encode:
-        raise NotImplementedError(
-            "the encoder is not ported yet: pass --fake-encode "
-            "(fake_encode=True, the all-zero codeword)")
+    if torch.device(device).type == "cuda" and cfg.backend != "auto":
+        raise ValueError(
+            f"backend={cfg.backend!r} runs the plain PyTorch path, which "
+            "the port runs on the CPU only: pass --backend auto, or "
+            "--device cpu")
     if cfg.channel_backend != "fused":
         raise NotImplementedError(
             f"channel_backend={cfg.channel_backend!r} is not ported yet: pass "
@@ -81,22 +86,53 @@ def check_ported(cfg: SimConfig, device) -> None:
             "--quant-bits 2..6")
 
 
-def _build_round(code: QCCode, cfg: SimConfig, device):
-    """-> round(params, seed, rnd) -> counters, with ``params`` the
-    channel thresholds on ``device``."""
+def _fuses(code: QCCode, cfg: SimConfig) -> bool:
+    """True where kernel F takes the whole round: the auto backend and
+    ``supports_sim`` (``_resolve_fused_sim``)."""
+    return cfg.backend == "auto" and supports_sim(code, cfg)
+
+
+def _codewords(code: QCCode, cfg: SimConfig, device):
+    """None for the all-zero word (``fake_encode``); else codewords(seed,
+    rnd) -> [batch, n_var] int8: the round's message bits from the stream,
+    encoded, on ``device``."""
+    if cfg.fake_encode:
+        return None
+    encode = make_encode_fn(code, device)
+
+    def codewords(seed: int, rnd: int) -> torch.Tensor:
+        return encode(philox.message_bits(seed, rnd, 0, cfg.batch_per_device,
+                                          code.n_info, device))
+
+    return codewords
+
+
+def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool):
+    """-> round(seed, rnd, sigma) -> counters on ``device``."""
     check_ported(cfg, device)
     dcfg = cfg.decoder()
     batch = cfg.batch_per_device
-    decoder = build_stats_decoder(code, dcfg, device)
+    codewords = _codewords(code, cfg, device)
     bf_cap = max(dcfg.bf.max_iter, 1)
+    if fuse and _fuses(code, cfg):
+        sim = build_fused_sim(code, cfg, device)
+    else:
+        decoder = build_stats_decoder(code, dcfg, device)
+        thresholds = ThresholdCache(cfg, device)
 
-    def run_round(params: torch.Tensor, seed: int, rnd: int) -> dict:
-        llr, mod_bits, mod_syms = quantile_channel(
-            params, seed=seed, rnd=rnd, batch=batch, n_var=code.n_var,
-            n_info=code.n_info, mod_type=cfg.mod_type,
-            quant_bits=cfg.quant_bits)
-        out = decoder(llr)
+        def sim(cw, seed: int, rnd: int, sigma: float) -> dict:
+            llr, mod_bits, mod_syms = quantile_channel(
+                thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
+                n_var=code.n_var, n_info=code.n_info, mod_type=cfg.mod_type,
+                quant_bits=cfg.quant_bits, cw=cw)
+            return dict(decoder(llr, cw), mod_error_bits=mod_bits,
+                        mod_error_symbols=mod_syms)
+
+    def run_round(seed: int, rnd: int, sigma: float) -> dict:
+        cw = None if codewords is None else codewords(seed, rnd)
+        out = sim(cw, seed, rnd, sigma)
         err = out["err_bits"]
+        mod_bits = out["mod_error_bits"]
         frame_err = err > 0
         return {
             # a fill kernel, not a host-to-device copy that would sync
@@ -107,7 +143,7 @@ def _build_round(code: QCCode, cfg: SimConfig, device):
             "error_frames": frame_err.sum(dtype=torch.int32),
             "lt3_frames": (frame_err & (err < 3)).sum(dtype=torch.int32),
             "mod_error_bits": mod_bits.sum(dtype=torch.int32),
-            "mod_error_symbols": mod_syms.sum(dtype=torch.int32),
+            "mod_error_symbols": out["mod_error_symbols"].sum(dtype=torch.int32),
             "mod_error_frames": (mod_bits > 0).sum(dtype=torch.int32),
             "mp_iters": out["mp_iters"].sum(dtype=torch.int32),
             "bf_rounds": out["bf_rounds"].sum(dtype=torch.int32),
@@ -118,31 +154,28 @@ def _build_round(code: QCCode, cfg: SimConfig, device):
     return run_round
 
 
-def build_sim_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
+def build_sim_step(code: QCCode, cfg: SimConfig, device="cuda",
+                   fuse: bool = True) -> Callable:
     """Returns step(seed, rnd, sigma) -> dict of int32 counters on
-    ``device`` for stream round ``rnd`` of stream ``seed``."""
-    run_round = _build_round(code, cfg, device)
-
-    def step(seed: int, rnd: int, sigma: float) -> dict:
-        return run_round(threshold_ints(cfg, sigma).to(device), seed, rnd)
-
-    return step
+    ``device`` for stream round ``rnd`` of stream ``seed``.  ``fuse=False``
+    composes kernels A and B even where kernel F covers the round (the
+    same counters; for comparing the two)."""
+    return _build_round(code, cfg, device, fuse)
 
 
 def build_sim_loop(code: QCCode, cfg: SimConfig, rounds: int,
-                   device="cuda") -> Callable:
+                   device="cuda", fuse: bool = True) -> Callable:
     """Returns loop(seed, sigma, round0) -> counters summed ON the device
     over stream rounds ``round0 .. round0 + rounds - 1``; identical to
     summing ``build_sim_step``'s counters for those rounds."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
-    run_round = _build_round(code, cfg, device)
+    run_round = _build_round(code, cfg, device, fuse)
 
     def loop(seed: int, sigma: float, round0: int) -> dict:
-        params = threshold_ints(cfg, sigma).to(device)
         acc = None
         for i in range(rounds):
-            stats = run_round(params, seed, round0 + i)
+            stats = run_round(seed, round0 + i, sigma)
             acc = stats if acc is None else {k: acc[k] + v
                                              for k, v in stats.items()}
         return acc
@@ -152,9 +185,9 @@ def build_sim_loop(code: QCCode, cfg: SimConfig, rounds: int,
 
 def build_debug_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
     """Forensic replay step: the datapath of ``build_sim_step``, returning
-    per-frame arrays instead of counters.  Every channel word is a pure
-    function of (seed, rnd, frame), so any Monte-Carlo round can be
-    replayed exactly to dump its failing frames.
+    per-frame arrays instead of counters.  Every message bit and channel
+    word is a pure function of (seed, rnd, frame), so any Monte-Carlo
+    round can be replayed exactly to dump its failing frames.
 
     Returns debug(seed, rnd, sigma) -> dict(err_bits [batch] int32,
     hard [batch, n_var] bool, cw [batch, n_var] int8, llr [batch, n_var]
@@ -166,20 +199,31 @@ def build_debug_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
     check_ported(cfg, device)
     decoder = build_decoder(code, cfg.decoder())
     batch = cfg.batch_per_device
+    codewords = _codewords(code, cfg, device)
+    if _fuses(code, cfg):
+        # the fused round's own replay twin (the same channel, kernel C)
+        channel = build_fused_sim_emit(code, cfg, device)
+    else:
+        thresholds = ThresholdCache(cfg, device)
+
+        def channel(cw, seed: int, rnd: int, sigma: float):
+            return quantile_channel_map(
+                thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
+                n_var=code.n_var, quant_bits=cfg.quant_bits, cw=cw)
     # A 0-dim tensor on the device, not a Python float: CUDA divides by a
     # host scalar as a multiply by its float32 reciprocal, which is not
     # always the quotient the JAX package's division gives.
     scale = torch.tensor(cfg.scale, dtype=torch.float32, device=device)
 
     def debug(seed: int, rnd: int, sigma: float) -> dict:
-        llr, _ = quantile_channel_map(
-            threshold_ints(cfg, sigma).to(device), seed=seed, rnd=rnd,
-            batch=batch, n_var=code.n_var, quant_bits=cfg.quant_bits)
+        cw = None if codewords is None else codewords(seed, rnd)
+        llr, _ = channel(cw, seed, rnd, sigma)
         out = decoder(llr)
-        # the all-zero word: every decoded 1 is an error
-        err = out["hard"][:, :code.n_info].sum(dim=1, dtype=torch.int32)
-        return {"err_bits": err, "hard": out["hard"],
-                "cw": torch.zeros_like(llr), "llr": llr,
+        if cw is None:
+            cw = torch.zeros_like(llr)      # every decoded 1 is an error
+        err = out["hard"][:, :code.n_info] ^ (cw[:, :code.n_info] != 0)
+        return {"err_bits": err.sum(dim=1, dtype=torch.int32),
+                "hard": out["hard"], "cw": cw, "llr": llr,
                 "soft": llr.to(torch.float32) / scale}
 
     return debug

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "faid_tpu_torch"
 SOURCES = ("quantile_channel.cu", "stats_decoder.cu", "full_decoder.cu",
-           "mp_decoder.cu")
+           "mp_decoder.cu", "fused_sim.cu")
 HEADERS = ("philox.cuh", "staircase.cuh", "decoder.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,9 +57,12 @@ _SIGNATURES = {
     "faid_quantile_channel_map": (
         [_P] * 4 + [_I] * 5
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
-    "faid_stats_decoder": ([_I, _I] + [_P] * 8 + [_ARGS, _I, _P], _I),
-    "faid_full_decoder": ([_I, _I] + [_P] * 7 + [_ARGS, _I, _P], _I),
-    "faid_mp_decoder": ([_I] + [_P] * 4 + [_ARGS, _I, _P], _I),
+    "faid_stats_decoder": ([_I] * 3 + [_P] * 9 + [_I, _ARGS, _I, _P], _I),
+    "faid_full_decoder": ([_I] * 3 + [_P] * 7 + [_ARGS, _I, _P], _I),
+    "faid_mp_decoder": ([_I] * 2 + [_P] * 4 + [_ARGS, _I, _P], _I),
+    "faid_fused_sim": (
+        [_I] * 3 + [_P] * 11 + [_I] * 4
+        + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _ARGS, _I, _P], _I),
     "faid_error_string": ([_I], ctypes.c_char_p),
 }
 

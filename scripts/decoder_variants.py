@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Time variants of the decoder template's main-path instance on one GPU.
 
-    python3 scripts/decoder_variants.py [--reference OLD_stats_decoder.cu]
+    python3 scripts/decoder_variants.py [--reference OLD/stats_decoder.cu]
 
 Builds kernel B (faid_tpu_torch/csrc/stats_decoder.cu with
 csrc/decoder.cuh) as it stands and with each source variant below, each
 into its own library under build/variants/, checks every variant's
-outputs equal on the FAID_DTBF configuration at 4.0 dB and 3.6 dB (the
-DTBF tail runs there), and times its FAID_DTBF instance at 4.0 dB, batch
-2048, on the 50G-PON code, in turns (six timings each, the order
-reversed every other turn).  ``--reference`` adds an earlier
-stats_decoder.cu whose C entry takes the FAID_DTBF decoder's 32
-arguments one by one (for example ``git show
-<commit>:faid_tpu_torch/csrc/stats_decoder.cu``), built and timed
-beside the variants.  Prints each variant's ptxas registers and spills.
+outputs equal on the FAID_DTBF configuration in group stop mode at
+4.0 dB and 3.6 dB (the DTBF tail runs there), and times its group-mode
+FAID_DTBF instance at 4.0 dB, batch 2048, on the 50G-PON code, in turns
+(six timings each, the order reversed every other turn).
+``--reference`` adds an earlier stats_decoder.cu, with the decoder.cuh
+it includes beside it, whose C entry has the form before frame mode
+(style, BF kind, the eight buffers, the code arguments, batch, stream),
+for example both files from ``git show <commit>:faid_tpu_torch/csrc/...``
+of the commit before frame mode; it is built and timed beside the
+variants.  Prints each variant's ptxas registers and spills.
 
 Variants (text substitutions on csrc/decoder.cuh):
   as_is     the source as it stands
@@ -91,6 +93,9 @@ def build(reference: Path | None) -> dict:
         d.mkdir(parents=True, exist_ok=True)
         (d / "decoder.cuh").write_text(fn(head))
         (d / "stats_decoder.cu").write_text(stats)
+        for h in kernels.HEADERS:
+            if h != "decoder.cuh":
+                (d / h).write_text((CSRC / h).read_text())
         jobs[name] = (d / "lib.so", d / "stats_decoder.cu", False)
     if reference is not None:
         jobs["reference"] = (OUT / "reference.so", reference, True)
@@ -105,10 +110,11 @@ def build(reference: Path | None) -> dict:
             raise RuntimeError(f"nvcc failed for {n}:\n{log[-4000:]}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            # the FAID_DTBF instance: (kStats, kFaid, kBfDtbf), or the
-            # reference's stats instance
+            # the group-mode FAID_DTBF instance: (kStats, kFaid, kBfDtbf,
+            # group), or the reference's (kStats, kFaid, kBfDtbf)
             if "Function properties" in line and (
-                    "ILi0ELi2ELi2E" in line or (jobs[n][2] and "ILb0EE" in line)):
+                    "ILi0ELi2ELi2ELb0EE" in line
+                    or (jobs[n][2] and "ILi0ELi2ELi2EEE" in line)):
                 print(f"{n}: {lines[i + 1].strip()}; {lines[i + 2].strip()}")
     return {n: (so, ref) for n, (so, _, ref) in jobs.items()}
 
@@ -129,7 +135,7 @@ def main():
                     quant_bits=4, scale=13.0, batch_per_device=BATCH,
                     fake_encode=True, channel_backend="fused",
                     stop_mode="group", seed=SEED)
-    dcfg, bf = cfg.decoder(), cfg.decoder().bf
+    dcfg = cfg.decoder()
     t = cd.decoder_tables(code, dcfg, dev)
     en, hard = (torch.empty((BATCH, code.n_var), dtype=torch.int8, device=dev)
                 for _ in range(2))
@@ -139,8 +145,9 @@ def main():
     entry = {}
     for n, (so, ref) in libs.items():
         f = ctypes.CDLL(str(so)).faid_stats_decoder
-        f.argtypes = ([P] * 14 + [I] * 17 + [P] if ref else
-                      [I, I] + [P] * 8 + [ctypes.POINTER(kernels.DecoderArgs), I, P])
+        args = ctypes.POINTER(kernels.DecoderArgs)
+        f.argtypes = ([I, I] + [P] * 8 + [args, I, P] if ref else
+                      [I] * 3 + [P] * 9 + [I, args, I, P])
         f.restype = I
         entry[n] = (f, ref)
 
@@ -148,22 +155,14 @@ def main():
         f, ref = entry[n]
         out = [torch.empty(BATCH, dtype=torch.int32, device=dev) for _ in range(3)]
         stream = torch.cuda.current_stream().cuda_stream
-        bufs = [llr.data_ptr(), en.data_ptr(), msgs.data_ptr(), hard.data_ptr()]
+        bufs = [llr.data_ptr(), en.data_ptr(), msgs.data_ptr(), hard.data_ptr(),
+                None, *(o.data_ptr() for o in out)]
+        cargs, _ = cd.code_args(t)
         if ref:
-            st = f(*bufs, *(o.data_ptr() for o in out),
-                   t.row_ptr.data_ptr(), t.ent_col.data_ptr(),
-                   t.ent_shift.data_ptr(), t.vote_col.data_ptr(),
-                   t.vote_row.data_ptr(), t.vote_shift.data_ptr(),
-                   t.lut.data_ptr(), BATCH, code.n_var, code.n_info, code.z,
-                   code.n_block_rows, int(t.ent_col.numel()),
-                   code.n_var - code.puncture_tail, dcfg.max_iter,
-                   int(t.vote_col.numel()), bf.gamma, bf.max_iter, bf.delta,
-                   bf.l0, bf.l1, bf.alpha, dcfg.oms_offset,
-                   int(dcfg.sign_backtrack), stream)
-        else:
-            cargs, _ = cd._code_args(t)
-            st = f(cd.FAID, cd.BF_IDS["dtbf"], *bufs, None,
-                   *(o.data_ptr() for o in out), cargs, BATCH, stream)
+            st = f(cd.FAID, cd.BF_IDS["dtbf"], *bufs, cargs, BATCH, stream)
+        else:     # group mode, the all-zero reference word
+            st = f(cd.FAID, cd.BF_IDS["dtbf"], 0, *bufs, None, 0, cargs, BATCH,
+                   stream)
         kernels.check(st)
         return out
 

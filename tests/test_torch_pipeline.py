@@ -24,6 +24,7 @@ from faid_tpu_torch.code.toy import toy_code
 from faid_tpu_torch.config import DecodeMethod, SimConfig
 from faid_tpu_torch.convert import code_from_arrays
 from faid_tpu_torch.ops import cuda_channel, cuda_decoder, philox
+from faid_tpu_torch.sim import pipeline
 
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -178,15 +179,17 @@ def test_cpu_never_launches_kernels():
 
 def test_unported_pipeline_configs_raise():
     code = toy_code()
-    for kw in (dict(fake_encode=False), dict(channel_backend="xla"),
-               dict(mod_type=4), dict(quant_bits=1)):
+    for kw in (dict(channel_backend="xla"), dict(mod_type=4),
+               dict(quant_bits=1)):
         with pytest.raises(NotImplementedError):
             build_sim_step(code, _cfg(SimConfig, 32, **kw), "cpu")
-    # on a CUDA device: frame stop mode and the plain backend, refused
-    # before any table reaches the device
-    with pytest.raises(NotImplementedError, match="--stop-mode group"):
-        build_sim_step(code, _cfg(SimConfig, 32, stop_mode="frame",
-                                  decode_method=DecodeMethod.OMS), "cuda")
+    # real codewords and frame stop mode are ported, on the CPU and on a
+    # CUDA device; the plain backend is refused on a CUDA device before
+    # any table reaches it
+    build_sim_step(code, _cfg(SimConfig, 32, fake_encode=False), "cpu")
+    pipeline.check_ported(_cfg(SimConfig, 32, stop_mode="frame",
+                               fake_encode=False,
+                               decode_method=DecodeMethod.OMS), "cuda")
     with pytest.raises(ValueError, match="--backend auto"):
         build_sim_step(code, _cfg(SimConfig, 32, backend="plain",
                                   decode_method=DecodeMethod.NMS), "cuda")

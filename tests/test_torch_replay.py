@@ -174,19 +174,20 @@ def test_stream_round():
 
 def test_replay_rejects_unported_configs():
     code = toy_code()
-    for kw in (dict(fake_encode=False), dict(channel_backend="xla"),
-               dict(mod_type=4), dict(quant_bits=1)):
+    for kw in (dict(channel_backend="xla"), dict(mod_type=4),
+               dict(quant_bits=1)):
         with pytest.raises(NotImplementedError):
             build_debug_step(code, _sim_cfg(**kw), "cpu")
+    build_debug_step(code, _sim_cfg(fake_encode=False), "cpu")   # ported
     with pytest.raises(ValueError):
         build_debug_step(code, _sim_cfg(backend="xla"), "cpu")
 
 
 @pytest.mark.parametrize("build", ["sweep", "replay"])
 def test_cuda_rounds_refuse_the_plain_path(build):
-    """On a CUDA device a round runs the kernels only: frame stop mode
-    and the plain backend are refused, naming the flag, before any table
-    reaches the device (so no card is needed here)."""
+    """On a CUDA device a round runs the kernels only: the plain backend
+    is refused, naming the flag, before any table reaches the device (so
+    no card is needed here); frame stop mode runs there."""
     code = toy_code()
 
     def make(cfg):
@@ -194,10 +195,11 @@ def test_cuda_rounds_refuse_the_plain_path(build):
             return build_sim_loop(code, cfg, 1, "cuda")
         return build_debug_step(code, cfg, "cuda")
 
-    with pytest.raises(NotImplementedError, match="--stop-mode group"):
-        make(_sim_cfg(stop_mode="frame"))
     with pytest.raises(ValueError, match="--backend auto"):
         make(_sim_cfg(backend="plain"))
+    with pytest.raises(ValueError, match="--backend auto"):
+        make(_sim_cfg(backend="plain", stop_mode="frame"))
+    pipeline.check_ported(_sim_cfg(stop_mode="frame"), "cuda")
     # both run on the CPU, where the plain path is the kernels' twin
     for kw in (dict(stop_mode="frame"), dict(backend="plain")):
         pipeline.check_ported(_sim_cfg(**kw), "cpu")

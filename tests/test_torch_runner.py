@@ -297,9 +297,9 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
         cli.main([*CLI_ARGS, "--device", "cpu", "--multihost", "--out", out])
     with pytest.raises(NotImplementedError, match="--channel-backend fused"):
         cli.main(["--fake-encode", "--device", "cpu", "--out", out])
-    with pytest.raises(NotImplementedError, match="--fake-encode"):
-        cli.main(["--channel-backend", "fused", "--device", "cpu",
-                  "--out", out])
+    with pytest.raises(NotImplementedError, match="--mod-type"):
+        cli.main(["--channel-backend", "fused", "--mod-type", "4",
+                  "--device", "cpu", "--out", out])
 
 
 def test_cli_trace_dir(tmp_path, monkeypatch):
