@@ -60,7 +60,28 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
      at 3.6/3.7 dB with --collect-errors, its resume, the dumped frame's
      positions against the replay, whose codeword is the encoder's of the
      regenerated message, and the replayed round against the step; and
-     the same CLI in frame stop mode at 3.6 dB.
+     the same CLI in frame stop mode at 3.6 dB;
+ 17. kernel G (16/64/256-QAM quantile channel) against its plain twin, bit
+     for bit, LLRs and map, at batch 2048 on the full code (mod 4/6/8 x
+     4/6-bit x depth 1-3, and 3/5/2-bit cases, codewords and the all-zero
+     word) and at batch 64 on the toy code;
+ 18. kernel G's law: 30 launches of 16-QAM at 8.1 dB (depth 1, 4-bit,
+     scale 13, all-zero word), each level's LLR histogram against the
+     analytic probabilities of docs/channel_parity.json's 16qam row,
+     every bin |z| <= 5;
+ 19. the float chain (channel_backend xla) on the card: one CPU noise
+     tensor through it on cuda and on cpu, bit for bit (mod 1/2/4/6/8 x
+     1/4/6-bit x depth 1-3); build_sim_loop FER z-tests against the xla
+     rows of docs/channel_parity.json (QPSK, BPSK 3.6 dB, 16-QAM depth 2
+     7.5 dB) and kernel G against the fused row; 64- and 256-QAM: kernel
+     G against the float chain (FER and pre-decoder BER) at a waterfall
+     point; kernel F never launched on these rounds, G on every QAM one;
+ 20. the 16-QAM campaign (depth 2, 7.5 dB, --collect-errors) on the
+     default float chain and on kernel G: launches, resume, and the
+     replay of one error round against the step (the float chain's
+     replay gives the float LLRs);
+then CUDA-event timings of kernel G against its twin, of the float
+chain's parts, and of the QAM rounds on both channels, and G's bound.
 Any failed phase exits non-zero before the last line, which is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch and numpy, never JAX.
@@ -289,6 +310,425 @@ def check_fer(out: dict, method: str, factor_1: int, factor_2: int, label: str,
     check(abs(z) <= Z_LIMIT, f"{label}: |z| = {abs(z):.2f} > {Z_LIMIT}")
 
 
+def device_profile(what: str, fn, rounds: int, card: str):
+    """torch.profiler over one call of fn, which runs ``rounds`` rounds:
+    per round, the wall time, the device's busy time and idle share, and
+    the kernels that took the most device time (kernels only: an
+    operator's entry repeats its kernels' time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total / 1e3 / rounds, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profile of {what} ({card}), per round: wall {wall_ms / rounds:.4f} ms, "
+          f"device busy {busy:.4f} ms (idle {1 - busy * rounds / wall_ms:.1%} of the "
+          f"wall time); top: " + "; ".join(
+              f"{k[:48]} x{c // rounds} {ms:.4f} ms" for ms, c, k in rows[:8]))
+
+
+# ---- phases 17-20: kernel G (16/64/256-QAM) and the float channel chain ----
+# Each QAM configuration's waterfall point (FER 0.01-0.5 with FAID_DTBF,
+# frame stop mode, real codewords; found with the float chain), tried in
+# order until the float chain's FER at the first falls there; the speed
+# point is 0.4 dB above it, as 4.0 dB is above QPSK's 3.6.  256-QAM takes
+# the 6-bit quantizer: at 4 bits and scale 13 its level-3 LLRs, at most
+# |c_3| * 13 = 1.99 before noise, truncate to 0 or +-1, and the code
+# never converges (FER 1.0 up to 19.5 dB on the CPU).
+QAM_POINTS = {4: (4, (7.5, 7.3, 7.7)), 6: (4, (12.5, 12.3, 12.7)),
+              8: (6, (16.6, 16.4, 16.8))}
+SPEED_OFFSET_DB = 0.4
+QAM_NAMES = {1: "BPSK", 2: "QPSK", 4: "16-QAM", 6: "64-QAM", 8: "256-QAM"}
+# phase 18's limit on a histogram bin's |z|
+PARITY_LEVEL_Z = 5.0
+# the float chain's noise draw, per sample: a quarter of one Philox call
+# and the mantissa's shift and or; its float work (the uniform's affine
+# map, erfinv, the scale) is not counted, so its bound is a lower one
+NOISE_INT_OPS = PHILOX_OPS / 4 + 2
+
+
+def qam_rail_ops(mod_type: int, quant_bits: int, scale: float) -> float:
+    """The least int32 work of kernel G's function, per rail: a quarter of
+    one Philox call, the mirror xor, the magnitude index (a shift-add per
+    magnitude bit), then a binary search of the word among the 2 nparam + 1
+    cells that row m's sorted thresholds and their points cut the words
+    into (a compare and a select a step: every level's LLR and hard
+    decision are step functions of the word, constant on each cell), and
+    per level a read of the cell's (q, hard) from a per-row table, the clip
+    (min, max), level 0's sign restore (xor, sub) and each other level's
+    error xor.  The kernel walks the plan's intervals instead
+    (``qam_walk_ops``)."""
+    from faid_tpu_torch.ops import qam_plan
+
+    h = mod_type // 2
+    _, defs = qam_plan._plan(mod_type, quant_bits, float(scale))
+    search = math.ceil(math.log2(2 * len(defs) + 1))
+    return PHILOX_OPS / 4 + 1 + (h - 1) + 2 * search + 3 * h + 2 + (h - 1)
+
+
+def qam_walk_ops(mod_type: int, quant_bits: int, scale: float) -> float:
+    """Kernel G's own work, per rail: the same draw, mirror, index and
+    per-level tail, but the walk over every interval of the plan (2
+    compares, an and and an add; one compare and an add for a half-line)
+    in place of the search.  The walk is the same for every rail."""
+    from faid_tpu_torch.ops import qam_plan
+
+    h = mod_type // 2
+    table = qam_plan.plan_table(mod_type, quant_bits, scale).tolist()
+    ent = table[4 * h + 1:]
+    walk = sum(2 if (v & 0xFFFF) == 0 or (v >> 16) == 0 else 4 for v in ent)
+    return PHILOX_OPS / 4 + 1 + (h - 1) + walk + 2 * h + 2 + (h - 1)
+
+
+def parity_rows():
+    return json.loads((REPO / "docs" / "channel_parity.json").read_text())
+
+
+def two_prop_z(e1: int, n1: int, e2: int, n2: int) -> float:
+    p = (e1 + e2) / (n1 + n2)
+    se = math.sqrt(p * (1 - p) * (1 / n1 + 1 / n2)) if 0 < p < 1 else 0.0
+    return (e1 / n1 - e2 / n2) / se if se else 0.0
+
+
+def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
+                        counts):
+    """Phases 17-20 and the timings of kernel G and the float chain.
+    Returns kernel G's entry fields for the kernels line."""
+    from faid_tpu_torch import (build_debug_step, build_sim_loop, build_sim_step,
+                                cli, sigma_for)
+    from faid_tpu_torch.config import DecodeMethod, SimConfig
+    from faid_tpu_torch.ops import channel as fch
+    from faid_tpu_torch.ops import cuda_channel as cc
+    from faid_tpu_torch.ops import modem, philox, qam_plan
+    from faid_tpu_torch.ops.fixed_point import quantize_llr
+
+    n, n_info = code.n_var, code.n_info
+    t_phase = time.perf_counter()
+
+    def qcfg(mod, **kw):
+        base = dict(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6,
+                    mod_type=mod, quant_bits=QAM_POINTS.get(mod, (4,))[0],
+                    interleave_depth=2 if mod >= 4 else 1, scale=13.0,
+                    batch_per_device=BATCH, fake_encode=False,
+                    channel_backend="xla", stop_mode="frame", seed=SEED)
+        base.update(kw)
+        return SimConfig(**base)
+
+    def g_kw(c, cw, rnd, batch=BATCH, n_var=n):
+        return dict(seed=SEED, rnd=rnd, batch=batch, n_var=n_var,
+                    mod_type=c.mod_type, depth=c.interleave_depth,
+                    quant_bits=c.quant_bits, scale=c.scale, cw=cw)
+
+    # ---- phase 17: kernel G against its twin, bit for bit -------------------
+    cw17 = encode(philox.message_bits(SEED, 17, 0, BATCH, n_info, dev))
+    err_g = 0
+    cases = ([(m, qb, d) for m in (4, 6, 8) for qb in (4, 6) for d in (1, 2, 3)]
+             + [(4, 3, 2), (8, 5, 1), (6, 2, 3)])
+    for mod, qb, depth in cases:
+        c = qcfg(mod, quant_bits=qb, interleave_depth=depth)
+        params = qam_plan.plan_threshold_ints(
+            c, sigma_for(c, QAM_POINTS[mod][1][0])).to(dev)
+        for cw in (cw17, None):
+            kw = g_kw(c, cw, philox.stream_round(17, 1))
+            got = cc.quantile_channel_qam(params, **kw)
+            want = cc.quantile_channel_qam_plain(params, **kw)
+            torch.cuda.synchronize()
+            d_llr = max_abs_diff([(got[0], want[0])])
+            d_map = max_abs_diff([(got[1], want[1])])
+            frac = float(got[1][:, :n_info].float().mean())
+            print(f"kernel G vs plain, mod {mod}, {qb}-bit, depth "
+                  f"{depth}, {'codewords' if cw is not None else 'zero word'}: "
+                  f"llr max_abs_err {d_llr}, map max_abs_err {d_map} (info-bit "
+                  f"errors {frac:.5f})")
+            check(d_llr == 0 and d_map == 0,
+                  f"kernel G differs from its twin: mod {mod}, {qb}-bit, depth {depth}")
+            check(frac > 0, "kernel G drew no channel errors")
+            err_g = max(err_g, d_llr, d_map)
+    tcw = toy_encode(philox.message_bits(SEED, 3, 0, 64, toy.n_info, dev))
+    for mod in (4, 6, 8):
+        c = qcfg(mod, quant_bits=4)
+        params = qam_plan.plan_threshold_ints(c, sigma_for(c, 8.0)).to(dev)
+        for cw in (tcw, None):
+            kw = g_kw(c, cw, 5, batch=64, n_var=toy.n_var)
+            kw["frame0"] = 7
+            got = cc.quantile_channel_qam(params, **kw)
+            want = cc.quantile_channel_qam_plain(params, **kw)
+            d = max_abs_diff(zip(got, want))
+            print(f"kernel G vs plain, toy code batch 64, mod {mod}, depth 2, "
+                  f"{'codewords' if cw is not None else 'zero word'}: max_abs_err {d}")
+            check(d == 0, f"kernel G differs from its twin on the toy code, mod {mod}")
+            err_g = max(err_g, d)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 18: kernel G's law against the analytic histogram ------------
+    t_phase = time.perf_counter()
+    row = next(r for r in parity_rows()["histograms"] if r["label"] == "16qam")
+    hcfg = qcfg(4, quant_bits=4, interleave_depth=1)
+    params = qam_plan.plan_threshold_ints(hcfg, sigma_for(hcfg, row["snr_db"])).to(dev)
+    nsym = n // 4
+    hist = torch.zeros(2, 16, dtype=torch.int64, device=dev)
+    rounds = -(-int(5e8) // (BATCH * nsym * 2))
+    for r in range(rounds):
+        llr, _ = cc.quantile_channel_qam(params, **g_kw(hcfg, None,
+                                                        philox.stream_round(18, r)))
+        v = llr.view(BATCH, nsym, 2, 2).to(torch.int64) + 8
+        for lev in range(2):
+            hist[lev] += torch.bincount(v[:, :, lev, :].reshape(-1), minlength=16)
+    hist = hist.cpu()
+    worst = 0.0
+    for lev, lrow in enumerate(row["levels"]):
+        total = int(hist[lev].sum())
+        seen = set()
+        for b in lrow["bins"]:
+            p = b["expected"] / lrow["draws"]
+            obs = int(hist[lev][b["q"] + 8])
+            exp = p * total
+            seen.add(b["q"])
+            if b["z"] is None:      # too little mass for a normal z
+                check(obs <= exp + 5 * math.sqrt(exp) + 1,
+                      f"16-QAM level {lev} bin {b['q']}: {obs} draws where "
+                      f"{exp:.2f} are expected")
+                continue
+            z = (obs - exp) / math.sqrt(exp * (1 - p))
+            worst = max(worst, abs(z))
+            check(abs(z) <= PARITY_LEVEL_Z,
+                  f"16-QAM level {lev} bin {b['q']}: |z| = {abs(z):.2f}")
+        others = sum(int(hist[lev][q + 8]) for q in range(-8, 8) if q not in seen)
+        check(others == 0, f"16-QAM level {lev}: {others} draws outside the law's bins")
+    print(f"kernel G's law, 16-QAM 8.1 dB, depth 1, 4-bit, scale 13, all-zero word: "
+          f"{rounds} launches, {int(hist[0].sum())} draws a level, worst bin |z| "
+          f"{worst:.2f} against docs/channel_parity.json's analytic probabilities "
+          f"(limit {PARITY_LEVEL_Z})")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 19: the float chain on the card ------------------------------
+    t_phase = time.perf_counter()
+    nb = min(256, BATCH)
+    cw_cpu = cw17[:nb].cpu()
+    noise_cuda_cpu = None
+    for mod in (1, 2, 4, 6, 8):
+        samples = fch.noise_samples(n, mod)
+        noise = philox.normal_noise(SEED, 19, 0, nb, samples, "cpu")
+        if mod == 4:
+            on_card = philox.normal_noise(SEED, 19, 0, nb, samples, dev).cpu()
+            diff = (on_card.view(torch.int32).to(torch.int64)
+                    - noise.view(torch.int32).to(torch.int64)).abs()
+            noise_cuda_cpu = (int((diff > 0).sum()), int(diff.max()), diff.numel())
+        for qb in (1, 4, 6):
+            for depth in (1, 2, 3):
+                c = qcfg(mod, quant_bits=qb, interleave_depth=depth)
+                sigma = sigma_for(c, QAM_POINTS[mod][1][0] if mod >= 4 else 3.6)
+                a = fch.float_channel(cw_cpu, noise, sigma, c)
+                b = fch.float_channel(cw_cpu.to(dev), noise.to(dev), sigma, c)
+                same = all(torch.equal(x.view(torch.int8) if x.dtype != torch.float32
+                                       else x.view(torch.int32),
+                                       y.cpu().view(torch.int8) if y.dtype != torch.float32
+                                       else y.cpu().view(torch.int32))
+                           for x, y in zip(a, b))
+                check(same, f"the float chain on the card differs from the CPU's: "
+                            f"mod {mod}, {qb}-bit, depth {depth}")
+    print("float chain, one CPU noise tensor on cuda and on cpu, mod 1/2/4/6/8 x "
+          f"1/4/6-bit x depth 1-3, {nb} frames: LLRs, float LLRs and maps bit for "
+          "bit equal")
+    print(f"the noise drawn on the card against the CPU's (16-QAM's shape): "
+          f"{noise_cuda_cpu[0]} of {noise_cuda_cpu[2]} samples differ, by at most "
+          f"{noise_cuda_cpu[1]} ulp (erfinv is each device's)")
+
+    def run_loop(c, snr, rounds=FER_ROUNDS, round0=0):
+        loop = build_sim_loop(code, c, rounds, dev)
+        reset_counts()
+        out = loop(SEED, sigma_for(c, snr), round0)
+        torch.cuda.synchronize()
+        k = counts()
+        out = {key: v.tolist() for key, v in out.items()}
+        quantile = c.channel_backend == "fused"
+        check(k["F"] == 0, f"kernel F ran a {c.channel_backend} round: {k}")
+        check(k["B"] == rounds, f"kernel B launched {k['B']} times in {rounds} rounds")
+        check(k["G"] == (rounds if quantile and c.mod_type >= 4 else 0),
+              f"kernel G launched {k['G']} times in {rounds} "
+              f"{c.channel_backend} rounds at mod {c.mod_type}")
+        check(out["test_frames"] == rounds * BATCH, "wrong frame count")
+        check(sum(out["mp_hist"]) == sum(out["bf_hist"]) == out["test_frames"],
+              "histograms do not cover every frame")
+        return out, k
+
+    g_launches = 0
+    prow = {(r["label"], r["snr_db"]): r for r in parity_rows()["points"]}
+    for label, mod, snr, backend in (("qpsk", 2, 3.6, "xla"), ("bpsk", 1, 3.6, "xla"),
+                                     ("16qam-d2", 4, 7.5, "xla"),
+                                     ("16qam-d2", 4, 7.5, "fused")):
+        c = qcfg(mod, quant_bits=4, interleave_depth=2 if mod == 4 else 1,
+                 channel_backend=backend)
+        out, k = run_loop(c, snr)
+        if backend == "fused":
+            g_launches = k["G"]
+        ref = prow[label, snr][backend]
+        z = two_prop_z(out["error_frames"], out["test_frames"], ref["errors"], ref["frames"])
+        print(f"{label} {backend} {snr} dB, build_sim_loop {FER_ROUNDS} rounds: FER "
+              f"{out['error_frames'] / out['test_frames']:.6f} vs the JAX package's "
+              f"{ref['fer']} over {ref['frames']}: z = {z:.3f}; launches {k}")
+        check(abs(z) <= Z_LIMIT, f"{label} {backend}: |z| = {abs(z):.2f} > {Z_LIMIT}")
+    waterfall = {4: 7.5}
+    for mod in (6, 8):
+        qb, snrs = QAM_POINTS[mod]
+        for snr in snrs:
+            c = qcfg(mod, quant_bits=qb)
+            out_x, _ = run_loop(c, snr, rounds=2, round0=100)
+            fer = out_x["error_frames"] / out_x["test_frames"]
+            if 0.02 <= fer <= 0.45:
+                break
+        check(0.01 <= fer <= 0.5, f"no waterfall point for {QAM_NAMES[mod]} in {snrs}")
+        waterfall[mod] = snr
+        res = {}
+        for backend in ("xla", "fused"):
+            res[backend], k = run_loop(dataclasses.replace(c, channel_backend=backend), snr)
+        x, f = res["xla"], res["fused"]
+        zf = two_prop_z(x["error_frames"], x["test_frames"], f["error_frames"], f["test_frames"])
+        nb = x["test_frames"] * n_info
+        zb = two_prop_z(x["mod_error_bits"], nb, f["mod_error_bits"], nb)
+        print(f"{QAM_NAMES[mod]} depth 2, {qb}-bit, {snr} dB, {FER_ROUNDS} rounds each: float "
+              f"chain FER {x['error_frames'] / x['test_frames']:.6f}, pre-decoder BER "
+              f"{x['mod_error_bits'] / nb:.6e}; kernel G FER "
+              f"{f['error_frames'] / f['test_frames']:.6f}, BER "
+              f"{f['mod_error_bits'] / nb:.6e}: z FER {zf:.3f}, z BER {zb:.3f}")
+        check(abs(zf) <= Z_LIMIT and abs(zb) <= Z_LIMIT,
+              f"{QAM_NAMES[mod]}: kernel G and the float chain disagree (z {zf:.2f}, {zb:.2f})")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 20: the campaign path on the float chain and on kernel G -----
+    t_phase = time.perf_counter()
+    for label, extra in (("float chain (default)", []),
+                         ("kernel G", ["--channel-backend", "fused"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            outdir = Path(tmp) / "qam"
+            argv = ["--method", "2", "--mod-type", "4", "--interleave", "2",
+                    "--batch", str(BATCH), "--snr-start", "7.5", "--snr-pass", "0.1",
+                    "--snr-end", "7.55", "--min-frames", str(FER_ROUNDS * BATCH),
+                    "--seed", str(SEED), "--collect-errors", "--quiet", "--device",
+                    str(dev), "--out", str(outdir), *extra]
+            ccfg = cli.config_from_args(cli.build_argparser().parse_args(argv))
+            fused = ccfg.channel_backend == "fused"
+            reset_counts()
+            check(cli.main(argv) == 0, f"the 16-QAM campaign ({label}) failed")
+            torch.cuda.synchronize()
+            k = counts()
+            print(f"16-QAM campaign, {label}, 7.5 dB: launches {k}")
+            print("\n".join("  " + r for r in
+                            (outdir / "Result.txt").read_text().splitlines()))
+            check(k["F"] == 0 and k["A"] == 0 and k["B"] > 0 and k["D"] > 0
+                  and (k["G"] > 0) == fused,
+                  f"the 16-QAM campaign ({label}) launched {k}")
+            dumped = (outdir / "errorindex.txt").read_text().splitlines()
+            check(len(dumped) >= 1, f"the 16-QAM campaign ({label}) dumped no frame")
+            table = (outdir / "Result.txt").read_text()
+            ck = json.loads((outdir / "checkpoint.json").read_text())
+            r0 = ck["results"][0]["err_chunks"][0][0]
+            reset_counts()
+            check(cli.main(argv) == 0, "the resumed 16-QAM campaign failed")
+            check(counts()["B"] == 0, "the 16-QAM rerun did not resume")
+            check([r.split()[:7] for r in (outdir / "Result.txt").read_text().splitlines()]
+                  == [r.split()[:7] for r in table.splitlines()],
+                  "the resumed 16-QAM Result.txt differs")
+        sr = philox.stream_round(0, r0)
+        sigma = sigma_for(ccfg, 7.5)
+        step = build_sim_step(code, ccfg, dev)(SEED, sr, sigma)
+        reset_counts()
+        dbg = build_debug_step(code, ccfg, dev)(SEED, sr, sigma)
+        torch.cuda.synchronize()
+        kd = counts()
+        eb, ef = int(dbg["err_bits"].sum()), int((dbg["err_bits"] > 0).sum())
+        requant = quantize_llr(dbg["soft"], ccfg.scale, ccfg.quant_bits)
+        dequant = dbg["llr"].float() / torch.tensor(ccfg.scale, device=dev)
+        is_float = (torch.equal(requant, dbg["llr"])
+                    and not torch.equal(dbg["soft"], dequant))
+        print(f"16-QAM {label} replay of round {r0}: step error_bits "
+              f"{int(step['error_bits'])} frames {int(step['error_frames'])}, debug "
+              f"{eb} / {ef}; launches {kd}; soft is the float LLR: {is_float}")
+        check(int(step["error_bits"]) == eb and int(step["error_frames"]) == ef > 0,
+              f"the 16-QAM {label} replay's error counts differ from the step's")
+        check(is_float != fused and (not fused or torch.equal(dbg["soft"], dequant)),
+              f"the 16-QAM {label} replay's soft values are not the channel's")
+        check((kd["G"] == 1) == fused and kd["D"] == 1,
+              f"the 16-QAM {label} replay launched {kd}")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- timings of kernel G and the float chain at the speed points --------
+    t_phase = time.perf_counter()
+    cw_t = encode(philox.message_bits(SEED, 33, 0, BATCH, n_info, dev))
+    g_times = {}
+    for mod in (4, 6, 8):
+        c = qcfg(mod)
+        snr = waterfall[mod] + SPEED_OFFSET_DB
+        params = qam_plan.plan_threshold_ints(c, sigma_for(c, snr)).to(dev)
+        kw = g_kw(c, cw_t, 9)
+        ms, plain = in_turns(lambda: cc.quantile_channel_qam(params, **kw),
+                             lambda: cc.quantile_channel_qam_plain(params, **kw), 20, 2)
+        ops = BATCH * (2 * n // mod) * qam_rail_ops(mod, c.quant_bits, c.scale) + PHILOX_KEY_OPS
+        bnd = bound(3 * BATCH * n, ops)
+        g_times[mod] = (ms, plain, bnd)
+        print(f"kernel G, {QAM_NAMES[mod]} depth 2, {c.quant_bits}-bit, {snr:.1f} dB, batch "
+              f"{BATCH} ({card}), in turns with its twin: {ms:.4f} ms (plain "
+              f"{plain:.4f}); bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.1%}; "
+              f"{qam_rail_ops(mod, c.quant_bits, c.scale):.0f} int32 ops a rail at "
+              f"least, {qam_walk_ops(mod, c.quant_bits, c.scale):.0f} in the kernel's "
+              f"interval walk)")
+    for mod in (2, 4, 6, 8):
+        c = qcfg(mod)
+        snr = waterfall.get(mod, 3.6) + SPEED_OFFSET_DB
+        sig = torch.full((), sigma_for(c, snr), dtype=torch.float32, device=dev)
+        samples = fch.noise_samples(n, mod)
+        noise = philox.normal_noise(SEED, 9, 0, BATCH, samples, dev)
+
+        def chain():
+            tx = modem.interleave(cw_t, c.interleave_depth)
+            if mod == 1:
+                soft = fch.awgn_real(modem.modulate_bpsk(tx), noise, sig)
+            else:
+                sym = modem.modulate_qam(tx, mod)
+                soft = modem.demodulate_qam(
+                    fch.awgn_complex(sym, noise.view(sym.shape), sig), mod)
+            return modem.deinterleave(soft, c.interleave_depth)
+
+        soft = chain()
+        ms_noise = cuda_ms(lambda: philox.normal_noise(SEED, 9, 0, BATCH, samples, dev), 5)
+        ms_chain = cuda_ms(chain, 5)
+        ms_quant = cuda_ms(lambda: quantize_llr(soft, c.scale, c.quant_bits), 10)
+        nb_ = bound(4 * BATCH * samples, BATCH * samples * NOISE_INT_OPS + PHILOX_KEY_OPS)
+        print(f"float chain, {QAM_NAMES[mod]}, depth {c.interleave_depth}, {snr:.1f} dB, batch "
+              f"{BATCH} ({card}): noise draw {ms_noise:.4f} ms (bound {nb_[0]:.4f} ms by "
+              f"{nb_[1]}, {nb_[0] / ms_noise:.1%}), modulate + AWGN + demap + interleave "
+              f"pair {ms_chain:.4f} ms, quantizer {ms_quant:.4f} ms")
+    rounds = 5
+    for mod in (2, 4, 6, 8):
+        c = qcfg(mod, stop_mode="group")
+        snr = waterfall.get(mod, 3.6) + SPEED_OFFSET_DB
+        lx = build_sim_loop(code, c, rounds, dev)
+        lf = build_sim_loop(code, dataclasses.replace(c, channel_backend="fused"),
+                            rounds, dev)
+        sg = sigma_for(c, snr)
+        ms_x, ms_f = in_turns(lambda: lx(SEED, sg, 200), lambda: lf(SEED, sg, 200), 2, 2)
+        rate = lambda ms: rounds * BATCH * n_info / (ms * 1e-3) / 1e6  # noqa: E731
+        print(f"round, {QAM_NAMES[mod]}, depth {c.interleave_depth}, {c.quant_bits}-bit, "
+              f"{snr:.1f} dB, group mode, codewords, batch {BATCH} ({card}), in turns: "
+              f"float chain {ms_x / rounds:.4f} ms = {rate(ms_x):.1f} Mbit/s, "
+              f"{'kernel F' if mod == 2 else 'kernel G + B'} {ms_f / rounds:.4f} ms "
+              f"= {rate(ms_f):.1f} Mbit/s")
+        if mod >= 4:
+            for name, lp in (("float chain", lx), ("kernel G + B", lf)):
+                device_profile(f"the {QAM_NAMES[mod]} {name} loop at {snr:.1f} dB",
+                               lambda: lp(SEED, sg, 200), rounds, card)
+    print(f"timings: {time.perf_counter() - t_phase:.1f} s")
+    ms, plain, bnd = g_times[4]
+    return dict(launches=g_launches, err=err_g, ms=ms, plain_ms=plain, bound=bnd)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -310,7 +750,8 @@ def main():
           "JAX or faid_tpu was imported")
     wrappers = {"A": cc.quantile_channel, "B": cd.stats_decode,
                 "C": cc.quantile_channel_map, "D": cd.full_decode,
-                "E": cd.mp_decode, "F": cs.fused_sim, "emit": cs.fused_sim_emit}
+                "E": cd.mp_decode, "F": cs.fused_sim, "emit": cs.fused_sim_emit,
+                "G": cc.quantile_channel_qam}
 
     def reset_counts():
         for w in wrappers.values():
@@ -965,27 +1406,12 @@ def main():
     print("10 rounds at 4.0 dB, codewords / zero word: " + ", ".join(
         f"{k} {c40[k]} / {z40[k]}" for k in ("error_frames", "error_bits", "mp_iters",
                                             "bf_rounds")))
-    # where a round's device time goes: torch.profiler over the 10 rounds
-    # of each loop, after the timings above warmed them up; kernels only
-    # (an operator's entry repeats its kernels' device time)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for what, fn in (("codewords", lambda: e2e_r(SEED, sigma_for(cfg, 4.0), 100)),
-                     ("zero word", lambda: e2e(SEED, sigma_for(cfg, 4.0), 100))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = [(e.self_device_time_total / 1e3 / e2e_rounds, e.count, e.key)
-                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-        busy = sum(r[0] for r in rows)
-        print(f"profile of the {what} loop at 4.0 dB ({card}), per round: wall "
-              f"{wall_ms / e2e_rounds:.4f} ms, device busy {busy:.4f} ms (idle "
-              f"{1 - busy * e2e_rounds / wall_ms:.1%} of the wall time); top: "
-              + "; ".join(f"{k[:48]} x{c // e2e_rounds} {ms:.4f} ms" for ms, c, k in rows[:8]))
+    # where a round's device time goes, after the timings above warmed
+    # the loops up
+    device_profile("the codewords loop at 4.0 dB",
+                   lambda: e2e_r(SEED, sigma_for(cfg, 4.0), 100), e2e_rounds, card)
+    device_profile("the zero word loop at 4.0 dB",
+                   lambda: e2e(SEED, sigma_for(cfg, 4.0), 100), e2e_rounds, card)
 
     # ---- phase 16: the campaign path with real codewords --------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1072,6 +1498,10 @@ def main():
     check(int(a["error_bits"]) == eb and int(a["error_frames"]) == ef > 0,
           "the frame-mode replay's error counts differ from the step's")
 
+    g = qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
+                            counts)
+    bounds["G"] = g["bound"]
+
     def entry(name, key, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -1102,6 +1532,9 @@ def main():
         entry("fused_sim_emit", "emit", "faid_tpu_torch/csrc/quantile_channel.cu",
               "faid_tpu/ops/pallas_decoder.py:1098", cli_counts["emit"], err_emit,
               ms_emit, plain_emit),
+        entry("quantile_channel_qam", "G", "faid_tpu_torch/csrc/qam_channel.cu",
+              "faid_tpu/ops/pallas_channel.py:659", g["launches"], g["err"],
+              g["ms"], g["plain_ms"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,12 @@ kernel in ``csrc/``, built with nvcc at first use:
                                            NMS and OMS)
   F  the whole round: channel, decoder     ops/cuda_sim.py      (sweep)
      and the five per-frame counters
+  G  16/64/256-QAM quantile channel +      ops/cuda_channel.py  (sweep and
+     ModCalErr map                                              replay)
 
-Real codewords come from the message stream (ops/philox.py) through the
+The float channel chain (``channel_backend="xla"``, the default: modem,
+AWGN on the noise stream of ops/philox.py, quantizer) is plain PyTorch,
+ops/channel.py.  Real codewords come from the message stream (ops/philox.py) through the
 encoder (code/encoder.py), a PyTorch int8 matrix product.
 
 It imports torch and numpy, never JAX.  Entry points run on ``cuda``

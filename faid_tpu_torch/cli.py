@@ -12,8 +12,11 @@ and writes Result.txt / demod.txt / iterCount.txt / Temp.txt /
 checkpoint.json into --out; a rerun resumes from the checkpoint.  It
 runs on ``cuda`` unless ``--device cpu`` is given, and fails when the
 device asked for is not there.  The flags are the JAX CLI's, with
-``--device`` in place of ``--platform``; configurations the port does
-not cover yet raise NotImplementedError naming the flag to change.
+``--device`` in place of ``--platform``, and the same defaults: the
+float channel chain (``--channel-backend xla``), QPSK, real codewords.
+``--multihost`` and FAID's EF 2 are not ported yet and raise
+NotImplementedError; a value outside the JAX package's configurations
+raises ValueError naming the flag to change.
 """
 
 from __future__ import annotations
@@ -84,9 +87,11 @@ def build_argparser() -> argparse.ArgumentParser:
                          "(--device cpu only)")
     ap.add_argument("--channel-backend", type=str, default=None,
                     choices=["xla", "fused"],
-                    help="channel backend: the float chain (the JAX "
-                         "package's default, not ported yet) or the fused "
-                         "quantile channel (BPSK/QPSK)")
+                    help="channel backend: xla, the float chain "
+                         "(modulate, AWGN, demap, quantize; the default) or "
+                         "fused, the quantile channel (kernel F for "
+                         "BPSK/QPSK, kernel G for 16/64/256-QAM on a GPU; "
+                         "a 1-bit quantizer falls back to the float chain)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
                          "the plain PyTorch twins of the kernels)")

@@ -145,8 +145,8 @@ class SimConfig:
     batch_per_device: int = 256
     rounds_per_sync: int = 8
     backend: str = "auto"
-    # "fused" = the quantile channel (ops/cuda_channel.py), the only
-    # channel this package has so far.
+    # "xla" = the float chain (ops/channel.py), "fused" = the quantile
+    # channel (ops/cuda_channel.py)
     channel_backend: str = "xla"
     stop_mode: str = "frame"
     rate_override: float | None = 0.8444444

@@ -1,4 +1,4 @@
-"""Fused quantile channel for BPSK/QPSK (``faid_tpu.ops.pallas_channel``).
+"""Fused quantile channel (``faid_tpu.ops.pallas_channel``).
 
 For one bit per LLR the whole front end (modulate, AWGN, demap,
 quantize) is a monotone staircase of one standard-normal draw, so the
@@ -14,16 +14,23 @@ mirrors the grid (``ix ^ -1``) and negates the output.  The output law
 is the float chain's marginal up to the 2^-32 grid and the float32
 normal CDF of the thresholds.
 
-The words come from the Philox stream of ops/philox.py.  Two variants:
+The words come from the Philox stream of ops/philox.py.  Three
+variants:
 
-  quantile_channel      LLRs + per-frame ModCalErr counts: kernel A, the
-                        Monte-Carlo sweep's channel
-  quantile_channel_map  LLRs + the ModCalErr map [B, n]: kernel C, the
-                        forensic replay's channel
+  quantile_channel      BPSK/QPSK LLRs + per-frame ModCalErr counts:
+                        kernel A, the Monte-Carlo sweep's channel
+  quantile_channel_map  BPSK/QPSK LLRs + the ModCalErr map [B, n]:
+                        kernel C, the forensic replay's channel
+  quantile_channel_qam  16/64/256-QAM LLRs + the ModCalErr map [B, n]:
+                        kernel G (csrc/qam_channel.cu), the sweep's and
+                        the replay's channel; one word per I/Q rail, every
+                        level of the rail a staircase of it (the plan of
+                        ops/qam_plan.py: the joint law of the folded
+                        demap's LLRs)
 
-On a CUDA tensor each launches its kernel (csrc/quantile_channel.cu); on
-a CPU tensor it takes its plain twin (``*_plain``), which gives the same
-outputs bit for bit.  Replay contract: for the same (seed, rnd, frame0)
+On a CUDA tensor each launches its kernel (A and C:
+csrc/quantile_channel.cu); on a CPU tensor it takes its plain twin
+(``*_plain``), which gives the same outputs bit for bit.  Replay contract: for the same (seed, rnd, frame0)
 kernel C's LLRs equal kernel A's bit for bit, because both run the same
 device code (csrc/staircase.cuh) on the same stream words, and both
 twins run ``staircase`` on ``philox.channel_words``.  The punctured tail
@@ -32,22 +39,16 @@ is left to the decoder's ingest, as in the JAX package.
 
 from __future__ import annotations
 
-import numpy as np
+import functools
+
 import torch
 
-from . import philox
+from . import modem, philox
 from .fixed_point import _QUANT_LIMITS
+from .qam_plan import (_plan, grid, plan_table, plan_threshold_ints,
+                       staircase_qam, step_offsets)
 
 _AMPLITUDE = {1: 1.0, 2: 0.707107}   # BPSK; QPSK rail
-
-
-def _step_offsets(quant_bits: int) -> np.ndarray:
-    """float64[L] quantizer step positions: {q >= k} <=> {y > off[k-1]};
-    integers for the truncating 2-5-bit quantizers, half-integers for the
-    round-half-even 6-bit one."""
-    lo, hi = _QUANT_LIMITS[quant_bits]
-    ks = np.arange(1, max(hi, -lo) + 1, dtype=np.float64)
-    return ks - 0.5 if quant_bits == 6 else ks
 
 
 def threshold_ints(cfg, sigma: float) -> torch.Tensor:
@@ -64,14 +65,9 @@ def threshold_ints(cfg, sigma: float) -> torch.Tensor:
     if cfg.mod_type != 1:   # QPSK splits the noise power over I and Q
         srail = srail / torch.sqrt(torch.tensor(2.0, **f32))
     inv_scale = torch.tensor(1.0 / cfg.scale, **f32)
-    k = torch.as_tensor(_step_offsets(cfg.quant_bits), **f32)
-    two32 = torch.tensor(4294967296.0, **f32)
-    xmax = float(2**31 - 256)                  # float32-representable clamp
+    k = torch.as_tensor(step_offsets(cfg.quant_bits), **f32)
     imax, imin = 2**31 - 1, -(2**31)
     ndtr = torch.special.ndtr
-
-    def grid(p, lo=0.0):
-        return torch.clamp(torch.round(p * two32), lo, xmax).to(torch.int64)
 
     t_a = (k * inv_scale + a) / srail
     A = imax - grid(ndtr(-t_a))
@@ -83,16 +79,18 @@ def threshold_ints(cfg, sigma: float) -> torch.Tensor:
 
 
 class ThresholdCache:
-    """``threshold_ints(cfg, sigma)`` on ``device``, made once per sigma:
-    a copy from pageable host memory each round would hold the host to
-    the device."""
+    """The quantile channel's thresholds on ``device``, made once per sigma
+    (a copy from pageable host memory each round would hold the host to
+    the device): ``threshold_ints`` for BPSK/QPSK, the QAM plan's
+    ``plan_threshold_ints`` for 16/64/256-QAM."""
 
     def __init__(self, cfg, device):
         self.cfg, self.device, self.cache = cfg, torch.device(device), {}
+        self.make = threshold_ints if cfg.mod_type in (1, 2) else plan_threshold_ints
 
     def __call__(self, sigma: float) -> torch.Tensor:
         if sigma not in self.cache:
-            self.cache[sigma] = threshold_ints(self.cfg, sigma).to(self.device)
+            self.cache[sigma] = self.make(self.cfg, sigma).to(self.device)
         return self.cache[sigma]
 
 
@@ -130,15 +128,19 @@ def mod_stats(err: torch.Tensor, n_info: int, mod_type: int):
 def _check_args(params, batch, n_var, quant_bits, cw):
     if quant_bits not in _QUANT_LIMITS:
         raise NotImplementedError(
-            f"quantile channel: {quant_bits}-bit is not ported (2-6 bits)")
+            f"quantile channel: a {quant_bits}-bit quantizer (2-6 bits; 1 bit "
+            "runs on the float chain)")
     lo, hi = _QUANT_LIMITS[quant_bits]
     if (params.dtype != torch.int32 or params.dim() != 1
             or params.numel() != 2 * max(hi, -lo) + 1
             or not params.is_contiguous()):
         raise ValueError("params must be a contiguous int32 [2L+1] tensor")
+    _check_cw(cw, batch, n_var, params.device)
+
+
+def _check_cw(cw, batch, n_var, device):
     if cw is not None and (cw.dtype != torch.int8 or cw.shape != (batch, n_var)
-                           or cw.device != params.device
-                           or not cw.is_contiguous()):
+                           or cw.device != device or not cw.is_contiguous()):
         raise ValueError("cw must be a contiguous int8 [batch, n_var] tensor "
                          "on the params' device")
 
@@ -146,7 +148,8 @@ def _check_args(params, batch, n_var, quant_bits, cw):
 def _check_stats_args(n_var, n_info, mod_type):
     if mod_type not in (1, 2):
         raise NotImplementedError(
-            f"quantile channel: mod_type {mod_type} is not ported (BPSK/QPSK)")
+            f"quantile channel: mod_type {mod_type} (BPSK/QPSK; 16/64/256-QAM "
+            "is quantile_channel_qam)")
     if not 0 < n_info <= n_var:
         raise ValueError(f"n_info={n_info} outside (0, n_var={n_var}]")
 
@@ -260,3 +263,93 @@ def quantile_channel(params, *, seed: int, rnd: int, batch: int, n_var: int,
 
 
 quantile_channel.launches = 0
+
+
+def _check_qam_args(params, batch, n_var, mod_type, depth, quant_bits, scale, cw):
+    if mod_type not in (4, 6, 8):
+        raise ValueError(f"QAM channel: mod_type {mod_type} is not 16/64/256-QAM")
+    if quant_bits not in _QUANT_LIMITS:
+        raise ValueError(f"QAM channel: {quant_bits}-bit quantizer (2-6 bits; "
+                         "1-bit runs on the float chain)")
+    if depth < 1 or n_var % mod_type or n_var % depth:
+        raise ValueError(f"n_var={n_var} needs whole symbols of {mod_type} bits "
+                         f"and whole interleaver rows of depth {depth}")
+    nparam = len(_plan(mod_type, quant_bits, float(scale))[1])
+    if (params.dtype != torch.int32
+            or params.shape != (2 ** (mod_type // 2 - 1), nparam)
+            or not params.is_contiguous()):
+        raise ValueError("params must be the contiguous int32 [nmag, nparam] "
+                         "plan_threshold_ints of this configuration")
+    _check_cw(cw, batch, n_var, params.device)
+
+
+def quantile_channel_qam_plain(params, *, seed: int, rnd: int, batch: int,
+                               n_var: int, mod_type: int, depth: int,
+                               quant_bits: int, scale: float, frame0: int = 0,
+                               cw=None):
+    """Plain PyTorch twin of kernel G on ``params``' device: the stream's
+    rail words, ``staircase_qam`` in the rail layout, the levels stacked
+    and deinterleaved."""
+    _check_qam_args(params, batch, n_var, mod_type, depth, quant_bits, scale, cw)
+    h, nsym = mod_type // 2, n_var // mod_type
+    ix = philox.channel_words(seed, rnd, frame0, batch, 2 * nsym,
+                              params.device).reshape(batch, nsym, 2)
+    cw32 = (torch.zeros((batch, n_var), dtype=torch.int32, device=params.device)
+            if cw is None else modem.interleave(cw, depth).to(torch.int32))
+    grp = cw32.reshape(batch, nsym, h, 2)
+    qs, hards = staircase_qam(ix, grp[:, :, 0], [grp[:, :, i] for i in range(1, h)],
+                              params, mod_type=mod_type, quant_bits=quant_bits,
+                              scale=scale)
+    errs = [hards[0]] + [hards[i] ^ grp[:, :, i] for i in range(1, h)]
+    llr, err = (modem.deinterleave(torch.stack(x, dim=2).reshape(batch, n_var)
+                                   .to(torch.int8), depth) for x in (qs, errs))
+    return llr, err
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(mod_type: int, quant_bits: int, scale: float,
+                 device: torch.device) -> torch.Tensor:
+    return plan_table(mod_type, quant_bits, scale).to(device)
+
+
+def quantile_channel_qam(params, *, seed: int, rnd: int, batch: int,
+                         n_var: int, mod_type: int, depth: int,
+                         quant_bits: int, scale: float, frame0: int = 0,
+                         cw=None):
+    """Frames ``frame0 ..`` of round ``rnd`` through the 16/64/256-QAM
+    quantile channel: one stream word per I/Q rail of the interleaved
+    codeword, every level's LLR a staircase of it (the joint law).
+
+    ``params`` is ``plan_threshold_ints`` on the device to run on, ``cw``
+    the [batch, n_var] int8 codeword (decoder order) or None for the
+    all-zero word, ``depth`` the interleaver's.  Returns (llr, mod_err),
+    each [batch, n_var] int8 in decoder order.  A CPU ``params`` takes the
+    plain twin; a CUDA one launches kernel G (csrc/qam_channel.cu)."""
+    dev = _kernel_device(params)
+    if dev is None:
+        return quantile_channel_qam_plain(
+            params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
+            mod_type=mod_type, depth=depth, quant_bits=quant_bits, scale=scale,
+            frame0=frame0, cw=cw)
+    _check_qam_args(params, batch, n_var, mod_type, depth, quant_bits, scale, cw)
+    philox.check_stream_args(seed, rnd, frame0, batch)
+    from ..utils import kernels
+
+    lib = kernels.library()
+    plan = _device_plan(mod_type, quant_bits, float(scale), dev)
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    llr = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
+    err = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.faid_qam_channel(
+            None if cw is None else cw.data_ptr(), llr.data_ptr(),
+            err.data_ptr(), params.data_ptr(), plan.data_ptr(), params.numel(),
+            plan.numel(), params.shape[1], batch, n_var, mod_type, depth, lo,
+            hi, seed, rnd, frame0, stream)
+    quantile_channel_qam.launches += 1
+    kernels.check(status)
+    return llr, err
+
+
+quantile_channel_qam.launches = 0

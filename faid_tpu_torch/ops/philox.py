@@ -1,5 +1,6 @@
 """Philox4x32-10 counter-based generator: the random streams of a round,
-the channel's words and the message bits.
+the quantile channels' words, the message bits and the float chain's
+noise.
 
 Replaces the TPU kernels' hardware PRNG (``pltpu.prng_random_bits``) and
 the portable threefry draws of ``faid_tpu.ops.pallas_channel``.  Neither
@@ -38,8 +39,33 @@ counter word 0 set (the channel's ``bit // 4`` stays below 2^31):
   bit j   = (w[(j // 32) mod 4] >> (j mod 32)) & 1
 
 so a replay regenerates any round's messages, and the channel's words
-are the same with or without them.  ``STREAM_TAG`` names this contract
-(both streams); checkpoints record it (sim/runner.py).
+are the same with or without them.
+
+The QAM quantile channel (kernel G, ops/cuda_channel.py
+``quantile_channel_qam``) draws one word per I/Q rail, in the channel's
+domain: rail ``r = 2*s + c`` of symbol ``s`` (c = 0 for I, 1 for Q), the
+symbols counted on the interleaved bit order, takes word ``r`` of the
+frame exactly as bit ``r`` would (counter ``(r // 4, frame, round)``,
+word ``r mod 4``).
+
+The float chain's noise (``normal_noise``, channel_backend "xla") takes
+one word per noise sample in a third domain, bit 30 of counter word 0
+set (the channel's ``bit // 4`` stays below 2^29, the message domain has
+bit 31 set):
+
+  counter  = (2^30 | (p // 4), frame, round mod 2^32, round >> 32)
+  word(p)  = w[p mod 4]
+
+for sample ``p`` of the frame's noise, counted in the order of the
+channel's input: bit p of the interleaved word for BPSK, rail p = 2*s + c
+for QPSK and QAM.  A word becomes N(0, 1) the way ``jax.random.normal``
+turns its bits into a normal: u = 1.f - 1 from the word's top 23 bits, in
+[0, 1); v = max(2u + nextafter(-1, 0), nextafter(-1, 0)), in (-1, 1);
+z = float32(sqrt 2) * erfinv(v), all in float32.  erfinv is the
+device's: a replay is exact on the device type that ran the round.
+
+``STREAM_TAG`` names this contract (every stream); checkpoints record it
+(sim/runner.py).
 
 Philox4x32-10 is Random123's (Salmon et al., SC'11): ten rounds of
 ``(c0, c1, c2, c3) -> (hi(M1*c2) ^ c1 ^ k0, lo(M1*c2), hi(M0*c0) ^ c3 ^ k1,
@@ -51,14 +77,16 @@ The plain version computes in int64: each 32x32-bit product is split at
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57        # round multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
 ROUNDS = 10
 _MASK = 0xFFFFFFFF
-STREAM_TAG = "philox4x32-10/v2"
+STREAM_TAG = "philox4x32-10/v3"
 _MESSAGE_DOMAIN = 1 << 31                # counter word 0's top bit
+_NOISE_DOMAIN = 1 << 30                  # counter word 0's bit 30
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -142,3 +170,28 @@ def message_bits(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
     shifts = torch.arange(8, dtype=torch.uint8, device=device)
     bits = (octets[..., None] >> shifts) & 1     # [batch, calls, 16, 8]
     return bits.reshape(batch, calls * 128)[:, :n_bits].to(torch.int8)
+
+
+def normal_from_words(w: torch.Tensor) -> torch.Tensor:
+    """uint32 words held in int64 -> float32 N(0, 1) samples, as
+    ``jax.random.normal`` maps its bits (see the stream contract)."""
+    def f32(value):      # a fill kernel, not a copy that waits for the device
+        return torch.full((), value, dtype=torch.float32, device=w.device)
+
+    mant = ((w >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    u = mant - f32(1.0)
+    lo = f32(float(np.nextafter(np.float32(-1), np.float32(0))))
+    v = torch.maximum(u * f32(2.0) + lo, lo)
+    return f32(float(np.float32(np.sqrt(2)))) * torch.erfinv(v)
+
+
+def normal_noise(seed: int, rnd: int, frame0: int, batch: int, n_samples: int,
+                 device) -> torch.Tensor:
+    """[batch, n_samples] float32 N(0, 1): the float chain's noise of frames
+    ``frame0 .. frame0 + batch - 1`` of round ``rnd``."""
+    groups = -(-n_samples // 4)
+    if groups > _NOISE_DOMAIN // 2:
+        raise ValueError(f"{n_samples} noise samples exceed the stream's domain")
+    w = _words(seed, rnd, frame0, batch, _NOISE_DOMAIN | torch.arange(
+        groups, dtype=torch.int64, device=device))
+    return normal_from_words(w.reshape(batch, groups * 4)[:, :n_samples])

@@ -1,0 +1,267 @@
+"""The staircase plan of the 16/64/256-QAM quantile channel
+(``faid_tpu.ops.pallas_channel``: ``_plan``, ``_plan_threshold_ints``,
+``_eval_level``, ``staircase_qam``).
+
+The folded max-log demap makes the mod/2 LLRs of one I/Q rail functions
+of ONE noise draw.  Level l's soft value is
+
+  L_0 = y = s + sigma_rail * z,   L_l = |L_{l-1}| - c_l
+
+(reference CModulate.cpp:270-362), so each event {L_l >= t} is a union
+of disjoint y-intervals whose endpoints depend on the fold constants and
+k / scale only (the plan), and sigma enters through turning each
+endpoint into a threshold on the uniform int32 grid, one row per Gray
+magnitude index m of the sent amplitude.  A rail draws one word, mirrors
+it by its sign bit (|y| is mirror-invariant, so only level 0 needs the
+sign restore) and evaluates every level's quantized LLR on it: the exact
+joint law of the rail's LLRs, not only their marginals.
+
+This module is pure PyTorch and numpy: the plan, its thresholds, the
+rail-layout evaluation (the plain twin's core, ops/cuda_channel.py) and
+the flat int32 table that kernel G (csrc/qam_channel.cu) walks.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import modem
+from .fixed_point import _QUANT_LIMITS
+
+_INF = float("inf")
+
+# QAM rail magnitudes indexed by the Gray magnitude index m (the rail's
+# bits after the sign bit, the first sent the MSB of m): the tables are
+# sign-symmetric halves, table[2^(h-1) + m] == -table[m].
+_MAGNITUDES = {
+    2: np.abs(modem.TABLE_QPSK[1:]).astype(np.float64),
+    4: np.abs(modem.TABLE_16QAM[2:]).astype(np.float64),
+    6: np.abs(modem.TABLE_64QAM[4:]).astype(np.float64),
+    8: np.abs(modem.TABLE_256QAM[8:]).astype(np.float64),
+}
+
+# the int32 grid: u = (ix + 2^31) / 2^32
+_IMAX, _IMIN = 2**31 - 1, -(2**31)
+_XMAX = float(2**31 - 256)                 # float32-representable clamp
+
+
+def step_offsets(quant_bits: int) -> np.ndarray:
+    """float64[L] quantizer step positions: {q >= k} <=> {y > off[k-1]};
+    integers for the truncating 2-5-bit quantizers, half-integers for the
+    round-half-even 6-bit one."""
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    ks = np.arange(1, max(hi, -lo) + 1, dtype=np.float64)
+    return ks - 0.5 if quant_bits == 6 else ks
+
+
+def grid(p: torch.Tensor, least: float = 0.0) -> torch.Tensor:
+    """round(p * 2^32) onto the uniform grid, float32 as in the JAX
+    package, clamped to [least, 2^31 - 256]; int64."""
+    two32 = torch.tensor(4294967296.0, dtype=torch.float32)
+    return torch.clamp(torch.round(p * two32), least, _XMAX).to(torch.int64)
+
+
+def _isect(a, b):
+    """Intersection of two disjoint-interval lists (each sorted)."""
+    out = []
+    for lo1, hi1 in a:
+        for lo2, hi2 in b:
+            lo, hi = max(lo1, lo2), min(hi1, hi2)
+            if lo < hi:
+                out.append((lo, hi))
+    return out
+
+
+def _expand_ge(level, t, folds):
+    """y-intervals of {L_level >= t}."""
+    if level == 0:
+        return [(t, _INF)]
+    u = folds[level - 1] + t
+    if u <= 0:
+        return [(-_INF, _INF)]          # |L_{level-1}| >= u always holds
+    return (_expand_ge(level - 1, u, folds)
+            + _expand_le(level - 1, -u, folds))
+
+
+def _expand_le(level, t, folds):
+    """y-intervals of {L_level <= t}."""
+    if level == 0:
+        return [(-_INF, t)]
+    u = folds[level - 1] + t
+    if u < 0:
+        return []                       # |L_{level-1}| <= u impossible
+    return _isect(_expand_ge(level - 1, -u, folds),
+                  _expand_le(level - 1, u, folds))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(mod_type: int, quant_bits: int, scale: float):
+    """(levels, defs): ``defs`` the deduplicated endpoints [('gt'|'lt', x)]
+    ('gt' needs T with {ix > T} <=> {y > x}, 'lt' with {ix < T} <=> {y <
+    x}); ``levels[l]`` a dict of interval lists per event, each interval
+    (lo endpoint index | None, hi endpoint index | None), and ``base``,
+    the count of always-true >= steps:
+      pos[k-1]: {L_l >= k/scale},  neg[k-1]: {L_l <= -k/scale},
+      hard:     {L_l > 0}."""
+    folds = tuple(modem._FOLD[mod_type])
+    defs: list[tuple[str, float]] = []
+    index: dict[tuple[str, float], int] = {}
+
+    def ref(kind, x):
+        key = (kind, float(x))
+        if key not in index:
+            index[key] = len(defs)
+            defs.append(key)
+        return index[key]
+
+    def compile_event(intervals):
+        out, base = [], 0
+        for lo_x, hi_x in intervals:
+            if lo_x == -_INF and hi_x == _INF:
+                base += 1
+                continue
+            out.append((None if lo_x == -_INF else ref("gt", lo_x),
+                        None if hi_x == _INF else ref("lt", hi_x)))
+        return tuple(out), base
+
+    levels = []
+    for lev in range(mod_type // 2):
+        pos, neg, base = [], [], 0
+        for off in step_offsets(quant_bits):
+            iv, b = compile_event(_expand_ge(lev, off / scale, folds))
+            pos.append(iv)
+            base += b
+            iv, b = compile_event(_expand_le(lev, -off / scale, folds))
+            assert b == 0   # a <= event never covers the whole line
+            neg.append(iv)
+        hard, hb = compile_event(_expand_ge(lev, 0.0, folds))
+        assert hb == 0      # the folds are positive: {L_l > 0} is proper
+        levels.append({"pos": tuple(pos), "neg": tuple(neg),
+                       "hard": hard, "base": base})
+    return tuple(levels), tuple(defs)
+
+
+def plan_threshold_ints(cfg, sigma: float) -> torch.Tensor:
+    """int32 [nmag, nparam] CPU tensor: the plan's thresholds, one row per
+    Gray magnitude index, for a sent '0' sign bit (amplitude -a_m).
+
+    The port of ``_plan_threshold_ints``, in float32 with ``ndtr``: each
+    probability on its small side, rounded half to even onto the 2^-32
+    grid, turned into a threshold with exact integer arithmetic; a step
+    whose probability rounds to 0 gets an unreachable threshold."""
+    _, defs = _plan(cfg.mod_type, cfg.quant_bits, float(cfg.scale))
+    f32 = dict(dtype=torch.float32)
+    srail = torch.tensor(sigma, **f32) / torch.sqrt(torch.tensor(2.0, **f32))
+    s = torch.as_tensor(-_MAGNITUDES[cfg.mod_type], **f32)[:, None]
+    xs = torch.as_tensor([x for _, x in defs], **f32)[None, :]
+    t = (xs - s) / srail
+    ndtr = torch.special.ndtr
+    t_gt = torch.where(t > 0, _IMAX - grid(ndtr(-t)),
+                       _IMIN + grid(ndtr(t), 1.0) - 1)
+    t_lt = torch.where(t < 0, _IMIN + grid(ndtr(t)),
+                       _IMAX - grid(ndtr(-t), 1.0) + 1)
+    is_gt = torch.tensor([k == "gt" for k, _ in defs])[None, :]
+    return torch.where(is_gt, t_gt, t_lt).to(torch.int32)
+
+
+def _eval_level(ixe, level_plan, P):
+    """One level's staircase on the mirrored draw ``ixe``; ``P(j)`` the
+    threshold of endpoint j for each element's magnitude row.  Returns (q
+    int32 before the asymmetric clip and the level-0 sign restore, hard
+    int32)."""
+    def ind(iv):
+        lo, hi = iv
+        if lo is None:
+            return (ixe < P(hi)).to(torch.int32)
+        if hi is None:
+            return (ixe > P(lo)).to(torch.int32)
+        return ((ixe > P(lo)) & (ixe < P(hi))).to(torch.int32)
+
+    def event(intervals):
+        out = torch.zeros(ixe.shape, dtype=torch.int32, device=ixe.device)
+        for iv in intervals:
+            out += ind(iv)
+        return out
+
+    q = torch.full(ixe.shape, level_plan["base"], dtype=torch.int32,
+                   device=ixe.device)
+    for iv_list in level_plan["pos"]:
+        q += event(iv_list)
+    for iv_list in level_plan["neg"]:
+        q -= event(iv_list)
+    return q, event(level_plan["hard"])
+
+
+def magnitude_index(mag_bits) -> torch.Tensor | int:
+    """The Gray magnitude index m of a rail from its magnitude bits
+    (levels 1..h-1 in send order, the first the MSB)."""
+    m = 0
+    for b in mag_bits:
+        m = 2 * m + (b != 0).to(torch.int64)
+    return m
+
+
+def staircase_qam(ix_rail, sign_bit, mag_bits, params, *, mod_type,
+                  quant_bits, scale):
+    """One int32 draw per rail -> every level's quantized LLR and hard
+    decision (the rail layout of ``staircase_qam``).
+
+    ix_rail   int32 [...], the rail's draw;
+    sign_bit  the rail's sent sign bit (level 0), shaped like ix_rail;
+    mag_bits  the rail's magnitude bits, levels 1..h-1 in send order;
+    params    int32 [nmag, nparam], ``plan_threshold_ints``.
+
+    Returns (qs, hards), lists over level of int32 tensors: the signed
+    quantized LLRs (asymmetric clip applied) and {L_l > 0} on the mirrored
+    draw.  hards[0] is the level-0 pre-decoder error indicator; for l >= 1
+    the caller XORs hards[l] with the sent bit."""
+    levels, _ = _plan(mod_type, quant_bits, float(scale))
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    mask0 = -(sign_bit != 0).to(torch.int32)
+    ixe = ix_rail ^ mask0
+    # endpoint j's threshold per element, gathered where it is used: the
+    # whole [..., nparam] row per element would not fit at full size
+    cols = params.t().contiguous()
+    m = magnitude_index(mag_bits)
+    P = (lambda j: cols[j][m]) if mag_bits else (lambda j: cols[j][0])
+    qs, hards = [], []
+    for lev, lplan in enumerate(levels):
+        q, h = _eval_level(ixe, lplan, P)
+        if lev == 0:
+            q = (q ^ mask0) - mask0        # sign restore (odd staircase)
+        if -lo != hi:
+            q = torch.clamp(q, lo, hi)
+        qs.append(q)
+        hards.append(h)
+    return qs, hards
+
+
+# The kernel's plan table, int32: [3h + 1 segment starts, h bases, the
+# entries].  Level l's intervals lie in three segments, starts[3l ..
+# 3l + 3]: those of its pos events (each adds 1 to q), of its neg events
+# (each subtracts 1) and of its hard decision.  An entry packs one
+# interval as (lo + 1) | (hi + 1) << 16, lo and hi its endpoint indices,
+# -1 for an infinite end.
+_FIELD = 1 << 16
+
+
+@functools.lru_cache(maxsize=None)
+def plan_table(mod_type: int, quant_bits: int, scale: float) -> torch.Tensor:
+    """The plan of (mod_type, quant_bits, scale) as kernel G's flat int32
+    table (layout above), on the CPU."""
+    levels, defs = _plan(mod_type, quant_bits, float(scale))
+    if len(defs) + 1 >= _FIELD:
+        raise ValueError(f"{len(defs)} plan endpoints exceed the table's field")
+    starts, bases, entries = [0], [], []
+    for lplan in levels:
+        for segment in (sum(lplan["pos"], ()), sum(lplan["neg"], ()),
+                        lplan["hard"]):
+            entries += [(-1 if lo is None else lo) + 1
+                        | ((-1 if hi is None else hi) + 1) << 16
+                        for lo, hi in segment]
+            starts.append(len(entries))
+        bases.append(lplan["base"])
+    return torch.tensor(starts + bases + entries, dtype=torch.int32)

@@ -1,21 +1,31 @@
 """One Monte-Carlo round: messages -> encode -> channel -> decode ->
 counters, and its forensic replay (``faid_tpu.sim.pipeline``).
 
-The port runs the fused quantile channel (``channel_backend="fused"``,
-BPSK/QPSK) with the all-zero codeword (``fake_encode``) or real ones,
-any of the six decoders, in either stop mode.  On a CUDA device:
+The port runs both channels of the JAX package: the float chain
+(``channel_backend="xla"``, the default: modulate, AWGN, demap,
+quantize, ops/channel.py) and the quantile channel ("fused"), for
+BPSK/QPSK/16/64/256-QAM, any interleaver depth, the all-zero codeword
+(``fake_encode``) or real ones, any of the six decoders, in either stop
+mode.  On a CUDA device:
 
   build_sim_step / build_sim_loop   kernel F, the whole round in one
-                                    kernel (ops/cuda_sim.py), wherever
-                                    ``supports_sim`` holds (the JAX
-                                    package's ``_resolve_fused_sim``);
-                                    else kernel A (channel + ModCalErr
-                                    counts) then kernel B (stats
-                                    decoder).  Every counter stays on
-                                    the device
+                                    kernel (ops/cuda_sim.py), for the
+                                    quantile channel wherever
+                                    ``supports_sim`` holds (BPSK/QPSK;
+                                    the JAX package's
+                                    ``_resolve_fused_sim``); else the
+                                    channel, then kernel B (stats
+                                    decoder): kernel A (BPSK/QPSK
+                                    quantile channel with its ModCalErr
+                                    counts), kernel G (16/64/256-QAM
+                                    quantile channel) or the float chain,
+                                    the last two with their ModCalErr
+                                    maps reduced by ``mod_stats``.  Every
+                                    counter stays on the device
   build_debug_step                  the same frames' LLRs (kernel C,
                                     through ``fused_sim_emit`` where F
-                                    ran the round), then kernel D (hard
+                                    ran the round; kernel G; the float
+                                    chain), then kernel D (hard
                                     decisions, a BF tail) or kernel E
                                     (MP only, NMS and OMS): the same
                                     round's frames, exactly
@@ -25,7 +35,8 @@ stream (``philox.message_bits``) and go through the encoder
 (code/encoder.py); the replay regenerates them.  ``rnd`` is the stream's
 64-bit round (ops/philox.py); the SNR sweep passes
 ``philox.stream_round(snr_idx, round)`` to both, so a replay redraws the
-sweep's frames bit for bit.
+sweep's frames bit for bit (the float chain's on the device type that
+ran the sweep: its erfinv is the device's).
 
 Counters per round (the reference's CalculateErrors and ModCalErr):
   error_bits       decoded info-bit errors
@@ -38,6 +49,7 @@ Counters per round (the reference's CalculateErrors and ModCalErr):
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import torch
@@ -47,8 +59,9 @@ from ..code.qc_matrix import QCCode
 from ..config import SimConfig
 from ..decoders.core import build_decoder, build_stats_decoder, check_backend
 from ..ops import philox
-from ..ops.cuda_channel import (ThresholdCache, quantile_channel,
-                                quantile_channel_map)
+from ..ops.channel import float_channel, noise_samples
+from ..ops.cuda_channel import (ThresholdCache, mod_stats, quantile_channel,
+                                quantile_channel_map, quantile_channel_qam)
 from ..ops.cuda_sim import build_fused_sim, build_fused_sim_emit, supports_sim
 from ..ops.fixed_point import _QUANT_LIMITS
 
@@ -62,34 +75,61 @@ def _histogram(x: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def check_ported(cfg: SimConfig, device) -> None:
-    """Raise, naming the CLI flag to change, for a round outside the port
-    on ``device``: NotImplementedError for what is not ported yet, and
-    ValueError for the plain backend on a CUDA device, where a round runs
-    the kernels only."""
+    """Raise, naming the CLI flag to change, for a round the port cannot
+    run on ``device``: ValueError for a configuration outside the JAX
+    package's too, and for the plain backend on a CUDA device, where a
+    round runs the kernels only.  (FAID's EF 2 and ``--multihost`` raise
+    NotImplementedError where the decoder and the CLI are built.)"""
     check_backend(cfg.backend)
     if torch.device(device).type == "cuda" and cfg.backend != "auto":
         raise ValueError(
             f"backend={cfg.backend!r} runs the plain PyTorch path, which "
             "the port runs on the CPU only: pass --backend auto, or "
             "--device cpu")
+    if cfg.channel_backend not in ("xla", "fused"):
+        raise ValueError(
+            f"channel_backend={cfg.channel_backend!r}: pass --channel-backend "
+            "xla (the float chain) or fused (the quantile channel)")
+    if cfg.mod_type not in (1, 2, 4, 6, 8):
+        raise ValueError(f"mod_type {cfg.mod_type}: pass --mod-type 1, 2, 4, 6 "
+                         "or 8")
+    if cfg.quant_bits != 1 and cfg.quant_bits not in _QUANT_LIMITS:
+        raise ValueError(f"a {cfg.quant_bits}-bit quantizer: pass --quant-bits "
+                         "1..6")
+    if cfg.interleave_depth < 1:
+        raise ValueError(f"interleave depth {cfg.interleave_depth}: pass "
+                         "--interleave 1 or more")
+
+
+def _check_shape(code: QCCode, cfg: SimConfig) -> None:
+    if code.n_var % cfg.mod_type or code.n_var % cfg.interleave_depth:
+        raise ValueError(
+            f"n_var={code.n_var} is not a whole number of {cfg.mod_type}-bit "
+            f"symbols and of interleaver rows of depth {cfg.interleave_depth}")
+
+
+def _quantile(cfg: SimConfig) -> bool:
+    """True where the quantile channel draws the round: channel_backend
+    "fused" with a 2-6-bit quantizer.  "fused" with a 1-bit quantizer
+    takes the float chain, with the JAX package's warning
+    (``_resolve_fused_channel``); a builder asks once per round it
+    builds."""
     if cfg.channel_backend != "fused":
-        raise NotImplementedError(
-            f"channel_backend={cfg.channel_backend!r} is not ported yet: pass "
-            "--channel-backend fused")
-    if cfg.mod_type not in (1, 2):
-        raise NotImplementedError(
-            f"mod_type {cfg.mod_type} is not ported yet: pass --mod-type 1 "
-            "or 2")
-    if cfg.quant_bits not in _QUANT_LIMITS:
-        raise NotImplementedError(
-            f"a {cfg.quant_bits}-bit quantizer is not ported yet: pass "
-            "--quant-bits 2..6")
+        return False
+    if cfg.quant_bits in _QUANT_LIMITS:
+        return True
+    warnings.warn(
+        f"channel_backend='fused' is not supported for this config "
+        f"(mod_type={cfg.mod_type}, quant_bits={cfg.quant_bits}); falling "
+        f"back to the float chain.", stacklevel=4)
+    return False
 
 
 def _fuses(code: QCCode, cfg: SimConfig) -> bool:
-    """True where kernel F takes the whole round: the auto backend and
-    ``supports_sim`` (``_resolve_fused_sim``)."""
-    return cfg.backend == "auto" and supports_sim(code, cfg)
+    """True where kernel F takes the whole round: the quantile channel, the
+    auto backend and ``supports_sim`` (``_resolve_fused_sim``)."""
+    return (cfg.backend == "auto" and cfg.channel_backend == "fused"
+            and supports_sim(code, cfg))
 
 
 def _codewords(code: QCCode, cfg: SimConfig, device):
@@ -107,9 +147,51 @@ def _codewords(code: QCCode, cfg: SimConfig, device):
     return codewords
 
 
+def _map_channel(code: QCCode, cfg: SimConfig, device,
+                 quantile: bool) -> Callable:
+    """-> channel(cw, seed, rnd, sigma) -> (llr, mod_err, soft): the LLRs
+    and the ModCalErr map [batch, n_var] int8 of the round's channel
+    (``quantile``: ``_quantile(cfg)``), and its float LLRs [batch, n_var]
+    float32 where the channel has them (the float chain), else None.
+    ``cw`` None is the all-zero word.
+
+      quantile, BPSK/QPSK   kernel C (ops/cuda_channel.py)
+      quantile, 16-256-QAM  kernel G (ops/cuda_channel.py)
+      float chain           ops/channel.py on the stream's noise
+                            (ops/philox.py ``normal_noise``)"""
+    batch, n_var, mod = cfg.batch_per_device, code.n_var, cfg.mod_type
+    if quantile:
+        thresholds = ThresholdCache(cfg, device)
+
+        def quantile(cw, seed: int, rnd: int, sigma: float):
+            if mod in (1, 2):
+                llr, err = quantile_channel_map(
+                    thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
+                    n_var=n_var, quant_bits=cfg.quant_bits, cw=cw)
+            else:
+                llr, err = quantile_channel_qam(
+                    thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
+                    n_var=n_var, mod_type=mod, depth=cfg.interleave_depth,
+                    quant_bits=cfg.quant_bits, scale=cfg.scale, cw=cw)
+            return llr, err, None
+
+        return quantile
+    zero = torch.zeros((batch, n_var), dtype=torch.int8, device=device)
+    samples = noise_samples(n_var, mod)
+
+    def float_chain(cw, seed: int, rnd: int, sigma: float):
+        noise = philox.normal_noise(seed, rnd, 0, batch, samples, device)
+        llr, soft, err = float_channel(zero if cw is None else cw, noise,
+                                       sigma, cfg)
+        return llr, err, soft
+
+    return float_chain
+
+
 def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool):
     """-> round(seed, rnd, sigma) -> counters on ``device``."""
     check_ported(cfg, device)
+    _check_shape(code, cfg)
     dcfg = cfg.decoder()
     batch = cfg.batch_per_device
     codewords = _codewords(code, cfg, device)
@@ -118,13 +200,24 @@ def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool):
         sim = build_fused_sim(code, cfg, device)
     else:
         decoder = build_stats_decoder(code, dcfg, device)
-        thresholds = ThresholdCache(cfg, device)
+        quantile = _quantile(cfg)
+        if cfg.mod_type in (1, 2) and quantile:
+            thresholds = ThresholdCache(cfg, device)
+
+            def channel(cw, seed: int, rnd: int, sigma: float):
+                return quantile_channel(
+                    thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
+                    n_var=code.n_var, n_info=code.n_info,
+                    mod_type=cfg.mod_type, quant_bits=cfg.quant_bits, cw=cw)
+        else:
+            map_channel = _map_channel(code, cfg, device, quantile)
+
+            def channel(cw, seed: int, rnd: int, sigma: float):
+                llr, err, _ = map_channel(cw, seed, rnd, sigma)
+                return (llr, *mod_stats(err, code.n_info, cfg.mod_type))
 
         def sim(cw, seed: int, rnd: int, sigma: float) -> dict:
-            llr, mod_bits, mod_syms = quantile_channel(
-                thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
-                n_var=code.n_var, n_info=code.n_info, mod_type=cfg.mod_type,
-                quant_bits=cfg.quant_bits, cw=cw)
+            llr, mod_bits, mod_syms = channel(cw, seed, rnd, sigma)
             return dict(decoder(llr, cw), mod_error_bits=mod_bits,
                         mod_error_symbols=mod_syms)
 
@@ -191,25 +284,24 @@ def build_debug_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
 
     Returns debug(seed, rnd, sigma) -> dict(err_bits [batch] int32,
     hard [batch, n_var] bool, cw [batch, n_var] int8, llr [batch, n_var]
-    int8, soft [batch, n_var] float32) on ``device``.  No float LLR
-    exists in the quantile channel, so ``soft`` is the dequantized
+    int8, soft [batch, n_var] float32) on ``device``.  On the float chain
+    ``soft`` is the float LLR (the reference's errorfloat.txt); no float
+    LLR exists in the quantile channel, so there it is the dequantized
     ``llr / scale``, as the JAX package's fused-channel replay gives it.
     For the same (seed, rnd, sigma), ``err_bits`` sums to ``build_sim_step``'s
     error_bits and counts its error_frames."""
     check_ported(cfg, device)
+    _check_shape(code, cfg)
     decoder = build_decoder(code, cfg.decoder())
-    batch = cfg.batch_per_device
     codewords = _codewords(code, cfg, device)
     if _fuses(code, cfg):
         # the fused round's own replay twin (the same channel, kernel C)
-        channel = build_fused_sim_emit(code, cfg, device)
-    else:
-        thresholds = ThresholdCache(cfg, device)
+        emit = build_fused_sim_emit(code, cfg, device)
 
         def channel(cw, seed: int, rnd: int, sigma: float):
-            return quantile_channel_map(
-                thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
-                n_var=code.n_var, quant_bits=cfg.quant_bits, cw=cw)
+            return (*emit(cw, seed, rnd, sigma), None)
+    else:
+        channel = _map_channel(code, cfg, device, _quantile(cfg))
     # A 0-dim tensor on the device, not a Python float: CUDA divides by a
     # host scalar as a multiply by its float32 reciprocal, which is not
     # always the quotient the JAX package's division gives.
@@ -217,14 +309,15 @@ def build_debug_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
 
     def debug(seed: int, rnd: int, sigma: float) -> dict:
         cw = None if codewords is None else codewords(seed, rnd)
-        llr, _ = channel(cw, seed, rnd, sigma)
+        llr, _, soft = channel(cw, seed, rnd, sigma)
+        if soft is None:
+            soft = llr.to(torch.float32) / scale
         out = decoder(llr)
         if cw is None:
             cw = torch.zeros_like(llr)      # every decoded 1 is an error
         err = out["hard"][:, :code.n_info] ^ (cw[:, :code.n_info] != 0)
         return {"err_bits": err.sum(dim=1, dtype=torch.int32),
-                "hard": out["hard"], "cw": cw, "llr": llr,
-                "soft": llr.to(torch.float32) / scale}
+                "hard": out["hard"], "cw": cw, "llr": llr, "soft": soft}
 
     return debug
 

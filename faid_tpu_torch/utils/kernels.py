@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "faid_tpu_torch"
 SOURCES = ("quantile_channel.cu", "stats_decoder.cu", "full_decoder.cu",
-           "mp_decoder.cu", "fused_sim.cu")
+           "mp_decoder.cu", "fused_sim.cu", "qam_channel.cu")
 HEADERS = ("philox.cuh", "staircase.cuh", "decoder.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,6 +56,9 @@ _SIGNATURES = {
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
     "faid_quantile_channel_map": (
         [_P] * 4 + [_I] * 5
+        + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
+    "faid_qam_channel": (
+        [_P] * 5 + [_I] * 9
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
     "faid_stats_decoder": ([_I] * 3 + [_P] * 9 + [_I, _ARGS, _I, _P], _I),
     "faid_full_decoder": ([_I] * 3 + [_P] * 7 + [_ARGS, _I, _P], _I),

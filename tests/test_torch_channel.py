@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_jax import unoptimized_jax_compiles  # noqa: F401
 from faid_tpu.config import SimConfig as JSimConfig
 from faid_tpu.ops import pallas_channel as pc
 from faid_tpu_torch.config import SimConfig

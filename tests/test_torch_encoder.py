@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_jax import unoptimized_jax_compiles  # noqa: F401
 from faid_tpu.code import encoder as jenc
 from faid_tpu.code.qc_matrix import load_code as jload_code
 from faid_tpu.code.toy import toy_code as jtoy_code
@@ -25,6 +26,7 @@ from faid_tpu_torch.ops import philox
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
 torch.set_num_threads(1)
+
 
 CODEWORD = (Path(__file__).parent.parent / "faid_tpu" / "code" / "data"
             / "50gpon_codeword.npz")

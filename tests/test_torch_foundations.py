@@ -125,6 +125,8 @@ def test_port_imports_no_jax():
             "faid_tpu_torch.decoders.bf", "faid_tpu_torch.ops.cn_update",
             "faid_tpu_torch.ops.cuda_channel", "faid_tpu_torch.ops.cuda_decoder",
             "faid_tpu_torch.ops.philox", "faid_tpu_torch.ops.syndrome",
+            "faid_tpu_torch.ops.modem", "faid_tpu_torch.ops.channel",
+            "faid_tpu_torch.ops.qam_plan",
             "faid_tpu_torch.sim.pipeline", "faid_tpu_torch.sim.runner",
             "faid_tpu_torch.cli", "faid_tpu_torch.utils.kernels",
             "faid_tpu_torch.utils.profile"]

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_jax import unoptimized_jax_compiles  # noqa: F401
 from faid_tpu.code.toy import toy_code as jtoy_code
 from faid_tpu.config import DecodeMethod as JMethod
 from faid_tpu.config import DecoderConfig as JDecoderConfig

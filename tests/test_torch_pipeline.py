@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_jax import unoptimized_jax_compiles  # noqa: F401
 from faid_tpu.code.qc_matrix import load_code as jload_code
 from faid_tpu.code.toy import toy_code as jtoy_code
 from faid_tpu.config import SimConfig as JSimConfig
@@ -29,6 +30,7 @@ from faid_tpu_torch.sim import pipeline
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
 torch.set_num_threads(1)
+
 
 SCALARS = ("test_frames", "error_bits", "error_frames", "lt3_frames",
            "mod_error_bits", "mod_error_symbols", "mod_error_frames",
@@ -179,9 +181,14 @@ def test_cpu_never_launches_kernels():
 
 def test_unported_pipeline_configs_raise():
     code = toy_code()
+    # the float chain, 16-QAM and the 1-bit quantizer are ported; values
+    # outside the JAX package's configurations raise
     for kw in (dict(channel_backend="xla"), dict(mod_type=4),
-               dict(quant_bits=1)):
-        with pytest.raises(NotImplementedError):
+               dict(channel_backend="xla", quant_bits=1)):
+        build_sim_step(code, _cfg(SimConfig, 32, **kw), "cpu")
+    for kw in (dict(channel_backend="float"), dict(mod_type=3),
+               dict(quant_bits=0)):
+        with pytest.raises(ValueError):
             build_sim_step(code, _cfg(SimConfig, 32, **kw), "cpu")
     # real codewords and frame stop mode are ported, on the CPU and on a
     # CUDA device; the plain backend is refused on a CUDA device before

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_jax import unoptimized_jax_compiles  # noqa: F401
 from faid_tpu.code.toy import toy_code as jtoy_code
 from faid_tpu.config import DecodeMethod as JMethod
 from faid_tpu.config import DecoderConfig as JDecoderConfig
@@ -174,9 +175,14 @@ def test_stream_round():
 
 def test_replay_rejects_unported_configs():
     code = toy_code()
+    # the float chain, 16-QAM and the 1-bit quantizer are ported; values
+    # outside the JAX package's configurations raise
     for kw in (dict(channel_backend="xla"), dict(mod_type=4),
-               dict(quant_bits=1)):
-        with pytest.raises(NotImplementedError):
+               dict(channel_backend="xla", quant_bits=1)):
+        build_debug_step(code, _sim_cfg(**kw), "cpu")
+    for kw in (dict(channel_backend="float"), dict(mod_type=3),
+               dict(quant_bits=0)):
+        with pytest.raises(ValueError):
             build_debug_step(code, _sim_cfg(**kw), "cpu")
     build_debug_step(code, _sim_cfg(fake_encode=False), "cpu")   # ported
     with pytest.raises(ValueError):

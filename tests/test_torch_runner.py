@@ -295,10 +295,13 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     assert e.value.code not in (0, None)
     with pytest.raises(NotImplementedError, match="--multihost"):
         cli.main([*CLI_ARGS, "--device", "cpu", "--multihost", "--out", out])
-    with pytest.raises(NotImplementedError, match="--channel-backend fused"):
-        cli.main(["--fake-encode", "--device", "cpu", "--out", out])
-    with pytest.raises(NotImplementedError, match="--mod-type"):
-        cli.main(["--channel-backend", "fused", "--mod-type", "4",
+    # the default float chain and 16-QAM run (tests/test_torch_qam.py);
+    # an interleaver that does not divide the code's length does not
+    with pytest.raises(ValueError, match="--interleave"):
+        cli.main([*CLI_ARGS, "--interleave", "0", "--device", "cpu",
+                  "--out", out])
+    with pytest.raises(ValueError, match="interleaver rows"):
+        cli.main([*CLI_ARGS, "--mod-type", "4", "--interleave", "5",
                   "--device", "cpu", "--out", out])
 
 
