@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from faid_tpu_torch/csrc, then:
-  1. prints the card's name and power limit and the kernel build time;
+  1. prints the card's name and power limit, the kernel build time, and
+     each decoder instance's registers, spills and static shared memory
+     from the build log (ptxas);
   2. kernel A (quantile channel + ModCalErr counts) against its plain
      PyTorch twin, bit for bit, on the full 50G-PON code at batch 2048,
      3.6 and 4.0 dB;
@@ -46,7 +48,10 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
  12. kernel F against its plain twin and against kernel A then kernel B,
      per frame and counter, for every method, both stop modes, fake and
      real codewords, at 3.6 dB on the full code at batch 2048 and on the
-     toy code; the BF rounds per word;
+     toy code; the BF rounds per word; then the 8-bit message width (a
+     FAID offset of 8 bounds a message by 8, not 7): kernels F, B and D
+     against their twins the same way, and each launch plan's shared
+     bytes and active clusters against the card's;
  13. fused_sim_emit (kernel C) then D (FAID_DTBF) or E (OMS) gives F's
      err_bits frame by frame, and emit's LLRs are kernel C's;
  14. frame stop mode: kernels B, D and E against their twins for every
@@ -54,13 +59,17 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
      method at 3.6 dB, FER z-test against the JAX package's frame-mode
      rows;
  15. the main path with real codewords: FER z-test at 3.6 dB (FAID_DTBF,
-     group), Mbit/s at 4.0 dB beside the all-zero word's, and kernel F
+     group) against the reference's all-zero-word row (no codeword row in
+     group mode is committed: a different workload, held to the same
+     bound), Mbit/s at 4.0 dB beside the all-zero word's, and kernel F
      against A + B in turns;
  16. the campaign path with real codewords: the CLI without --fake-encode
      at 3.6/3.7 dB with --collect-errors, its resume, the dumped frame's
      positions against the replay, whose codeword is the encoder's of the
      regenerated message, and the replayed round against the step; and
-     the same CLI in frame stop mode at 3.6 dB;
+     the same CLI in frame stop mode at 3.6 dB, its FER z-test against
+     docs/channel_parity.json's QPSK 3.6 dB row (real codewords, frame
+     mode, the quantile channel);
  17. kernel G (16/64/256-QAM quantile channel) against its plain twin, bit
      for bit, LLRs and map, at batch 2048 on the full code (mod 4/6/8 x
      4/6-bit x depth 1-3, and 3/5/2-bit cases, codewords and the all-zero
@@ -92,6 +101,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -163,15 +173,53 @@ HARD_OPS_PER_VN = 1
 OTHER_METHODS = (("NMS 1/6", 0, 1, 6), ("NMS 26/32", 0, 26, 32),
                  ("OMS", 1, 1, 6), ("OMS_BF", 3, 1, 6), ("OMS_DTBF", 4, 1, 6),
                  ("FAID_2B1C", 5, 1, 6))
-# kernel B's FAID_DTBF time at 4.0 dB when it decoded that configuration
-# alone, before the template took the other methods (PERF.md section 6)
-SINGLE_CONFIG_B_MS = 9.1289
+# Configurations whose message bound is above 7 (a FAID offset of 8: a
+# check-node constant reaches -8, a message 8), which the kernels run
+# with 8-bit messages, two frames a block and clusters of 16, as
+# (label, method, DecoderConfig fields)
+WIDE_CONFIGS = (("FAID_DTBF offset 8", 2, {"oms_offset": 8}),
+                ("FAID_2B1C offset 8", 5, {"oms_offset": 8}))
 # the peak int8 tensor-core rate of the H100 SXM at 700 W, dense (NVIDIA's
 # data sheet): the encoder's product
 PEAK_INT8_OPS_PER_S = 1979e12
 # the JAX package's method names (docs/refcheck_fer_compare.json)
 METHOD_NAMES = {0: "NMS", 1: "OMS", 2: "FAID_DTBF", 3: "OMS_BF", 4: "OMS_DTBF",
                 5: "FAID_2B1C"}
+
+
+# the decoder template's ids (csrc/decoder.cuh Out, Style, Bf)
+KERNEL_OF_OUT = {0: "B", 1: "D", 2: "E", 3: "F"}
+STYLE_NAMES = {0: "NMS", 1: "OMS", 2: "FAID", 3: "FAID_EF1"}
+BF_NAMES = {0: "none", 1: "static", 2: "DTBF", 3: "2B1C"}
+_INSTANCE = re.compile(r"decoder_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELi(\d)E")
+
+
+def kernel_ptxas(log: str) -> dict:
+    """Each kernel's ptxas report from the build log: registers, spill
+    store and load bytes, static shared bytes.  A decoder instance is
+    keyed by (kernel, style, BF kind, stop mode, message bits), another
+    kernel by its mangled name."""
+    rows, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            m = _INSTANCE.search(name)
+            cur = name if m is None else (
+                KERNEL_OF_OUT[int(m[1])], STYLE_NAMES[int(m[2])], BF_NAMES[int(m[3])],
+                "frame" if m[4] == "1" else "group", int(m[5]))
+            rows.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rows[cur]["spill"] = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows[cur]["regs"] = int(m[1])
+            rows[cur]["smem"] = int(sm[1]) if sm else 0
+    return rows
 
 
 def fail(msg: str):
@@ -773,9 +821,20 @@ def main():
     kernels.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"({kernels.library_path().name})")
-    for line in kernels.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line:
-            print("  ptxas:", line.strip())
+    ptxas = kernel_ptxas(kernels.build_log())
+    decoders = {k: r for k, r in ptxas.items() if isinstance(k, tuple)}
+    check(len(decoders) == 4 * (6 + 4 + 2 + 6)
+          and all("regs" in r for r in ptxas.values()),
+          f"the build log reports {len(decoders)} decoder instances, not 72")
+    for key, r in sorted(ptxas.items(), key=str):
+        what = (f"kernel {key[0]} {key[1]}/{key[2]} {key[3]} {key[4]}-bit"
+                if key in decoders else key[:60])
+        print(f"  ptxas: {what}: {r['regs']} registers, spill stores "
+              f"{r.get('spill', (0, 0))[0]} B, loads {r.get('spill', (0, 0))[1]} B, "
+              f"static smem {r['smem']} B")
+    check(max(r["smem"] for r in decoders.values()) <= cd.STATIC_SMEM,
+          f"a decoder instance's static shared memory exceeds the plan's "
+          f"{cd.STATIC_SMEM} B")
 
     code = load_code("50gpon")
     cfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6,
@@ -1079,10 +1138,18 @@ def main():
                              lambda: cd.mp_decode_plain(llr40, code, oms_dcfg),
                              10, 2)
     print(f"kernel E (OMS) at 4.0 dB, batch {BATCH} ({card}): {ms_e:.4f} ms "
-          f"(plain {plain_e:.4f}); kernel B FAID_DTBF {ms_b:.4f} ms = "
-          f"{ms_b / SINGLE_CONFIG_B_MS:.4f} x the single-configuration "
-          f"kernel's {SINGLE_CONFIG_B_MS} ms (within 5%: "
-          f"{abs(ms_b / SINGLE_CONFIG_B_MS - 1) <= 0.05})")
+          f"(plain {plain_e:.4f})")
+    for k, t in (("F", tables), ("B", tables), ("D", tables), ("E", mtables["OMS"])):
+        info = cd.launch_info(k, t, BATCH)
+        print(f"kernel {k} ({t.dcfg.method.name}, group mode) launch on {card}: "
+              f"{info['frames']} frames a block, clusters of {info['cluster']}, "
+              f"{info['smem_bytes']} B of dynamic shared memory a block, "
+              f"{t.plan.msg_bits}-bit messages; cudaOccupancyMaxActiveClusters "
+              f"{info['active']} ({info['active'] * info['cluster']} of the card's "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs), "
+              f"{BATCH // (info['frames'] * info['cluster'])} clusters a launch")
+        check(info["smem_bytes"] == t.plan.smem_bytes and info["active"] > 0,
+              f"kernel {k}'s launch differs from its plan: {info}, {t.plan}")
 
     nbytes = BATCH * code.n_var
     b_bytes = nbytes + 3 * 4 * BATCH
@@ -1312,6 +1379,69 @@ def main():
                       f"{label}'s BF tail was not engaged in kernel F, {mode}")
                 err_f = max(err_f, d_twin, d_ab)
                 err_b = max(err_b, d_b)
+    # the 8-bit message width: kernels F, B and D against their twins
+    for label, m, fields in WIDE_CONFIGS:
+        for mode in ("group", "frame"):
+            for c, prm, cwx, batch, kind in (
+                    (code, params36, None, BATCH, "full code, zero word"),
+                    (code, params36, cw36, BATCH, "full code, codewords"),
+                    (toy, tparams, None, 64, "toy code, zero word"),
+                    (toy, tparams, tcw, 64, "toy code, codewords")):
+                wcfg = dataclasses.replace(cfg, decode_method=DecodeMethod(m), stop_mode=mode)
+                wdcfg = dataclasses.replace(wcfg.decoder(), **fields)
+                t = cd.decoder_tables(c, wdcfg, dev)
+                check(t.plan.msg_bits == 8, f"{label}: plan {t.plan}")
+                kw = dict(seed=SEED, rnd=1, batch=batch, mod_type=2, quant_bits=4, cw=cwx)
+                reset_counts()
+                got = cs.fused_sim(prm, t, **kw)
+                a_out = cc.quantile_channel(prm, seed=SEED, rnd=1, batch=batch,
+                                            n_var=c.n_var, n_info=c.n_info,
+                                            mod_type=2, quant_bits=4, cw=cwx)
+                b_out = cd.stats_decode(a_out[0], t, cwx)
+                d_out = cd.full_decode(a_out[0], t)
+                k = counts()
+                want = cs.fused_sim_plain(prm, c, wdcfg, **kw)
+                want_d = cd.full_decode_plain(a_out[0], c, wdcfg)
+                torch.cuda.synchronize()
+                f = [got[k_] for k_ in cs.COUNTERS]
+                d_twin = max_abs_diff(zip(f, (want[k_] for k_ in cs.COUNTERS)))
+                d_ab = max_abs_diff(zip(f, (*b_out, *a_out[1:])))
+                d_b = max_abs_diff(zip(b_out, (want[k_] for k_ in cs.COUNTERS[:3])))
+                d_d = max_abs_diff(zip(d_out, want_d))
+                print(f"{label} {mode}, {kind}, 8-bit messages, {t.plan.frames} frames a "
+                      f"block: kernel F vs twin max_abs_err {d_twin}, vs A then B {d_ab}; "
+                      f"B vs twin {d_b}; D vs twin {d_d}; frames in error "
+                      f"{int((f[0] > 0).sum())}, mp_iters {int(f[1].sum())}, bf_rounds "
+                      f"{int(f[2].sum())}; launches {k}")
+                check(d_twin == 0 and d_ab == 0 and d_b == 0 and d_d == 0,
+                      f"the 8-bit instance disagrees: {label} {mode}, {kind}")
+                check(k["F"] == k["B"] == k["D"] == 1, f"{label}: launches {k}")
+                err_f = max(err_f, d_twin, d_ab)
+                err_b = max(err_b, d_b)
+                err_d = max(err_d, d_d)
+        if m == 2:
+            for k in ("F", "B", "D"):
+                info = cd.launch_info(k, cd.decoder_tables(code, dataclasses.replace(
+                    cfg.decoder(), **fields), dev), BATCH)
+                print(f"kernel {k} ({label}, group mode) launch on {card}: {info['frames']} "
+                      f"frames a block, clusters of {info['cluster']}, "
+                      f"{info['smem_bytes']} B of dynamic shared memory a block; "
+                      f"cudaOccupancyMaxActiveClusters {info['active']}")
+                check(info["active"] > 0, f"no cluster of kernel {k}'s 8-bit launch fits")
+    # what the 8-bit width costs: kernel F at 4.0 dB in turns with the
+    # main path's 4-bit instance (the offset-8 decode runs every MP
+    # iteration and BF round, so compare per frame-iteration)
+    wt = cd.decoder_tables(code, dataclasses.replace(dcfg, **WIDE_CONFIGS[0][2]), dev)
+    skw = dict(seed=SEED, rnd=9, batch=BATCH, mod_type=2, quant_bits=4)
+    ms8, ms4 = in_turns(lambda: cs.fused_sim(params40, wt, **skw),
+                        lambda: cs.fused_sim(params40, tables, **skw), 5, 5)
+    (i8, r8), (i4, r4) = ((int(o["mp_iters"].sum()), int(o["bf_rounds"].sum()))
+                          for o in (cs.fused_sim(params40, wt, **skw),
+                                    cs.fused_sim(params40, tables, **skw)))
+    print(f"kernel F at 4.0 dB, batch {BATCH} ({card}), in turns: 8-bit messages "
+          f"({WIDE_CONFIGS[0][0]}) {ms8:.4f} ms for {i8} frame-iterations and {r8} "
+          f"BF rounds ({ms8 / i8 * 1e6:.2f} ns a frame-iteration); 4-bit (FAID_DTBF) "
+          f"{ms4:.4f} ms for {i4} and {r4} ({ms4 / i4 * 1e6:.2f} ns)")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 13: emit, then D or E, gives F's errors ----------------------
@@ -1391,6 +1521,9 @@ def main():
     print(f"main path with codewords, 3.6 dB: {json.dumps(rout)} launches {r_counts}")
     check(r_counts["F"] > 0 and r_counts["A"] == r_counts["B"] == 0,
           f"the codeword path launched kernels {r_counts}")
+    print("the reference's FAID_DTBF 3.6 dB group row below is an all-zero-word "
+          "row, a different workload from these real codewords (no codeword row "
+          "in group mode is committed); it is held to the same bound")
     check_fer(rout, "FAID_DTBF", 1, 6, "main path with codewords")
     e2e_r = build_sim_loop(code, rcfg, e2e_rounds, "cuda")
     ms_r, ms_z = in_turns(lambda: e2e_r(SEED, sigma_for(cfg, 4.0), 100),
@@ -1487,7 +1620,18 @@ def main():
                         (outdir / "Result.txt").read_text().splitlines()))
         check(fr_counts["F"] > 0 and fr_counts["D"] > 0,
               f"the frame-mode campaign launched {fr_counts}")
-        check_fer(cf, "FAID_DTBF", 1, 6, "CLI frame mode with codewords", "frame")
+        # the codeword row: docs/channel_parity.json, QPSK 3.6 dB, FAID_DTBF,
+        # real codewords, frame mode, the quantile channel
+        prow = next(r for r in parity_rows()["points"]
+                    if r["label"] == "qpsk" and r["snr_db"] == 3.6)["fused"]
+        z = two_prop_z(cf["error_frames"], cf["test_frames"], prow["errors"],
+                       prow["frames"])
+        print(f"CLI frame mode with codewords FER "
+              f"{cf['error_frames'] / cf['test_frames']:.6f} over {cf['test_frames']} "
+              f"frames vs docs/channel_parity.json's QPSK 3.6 dB fused row "
+              f"{prow['fer']} over {prow['frames']} (real codewords, frame mode): "
+              f"z = {z:.3f}")
+        check(abs(z) <= Z_LIMIT, f"CLI frame mode with codewords: |z| = {abs(z):.2f}")
         r0 = ck["results"][0]["err_chunks"][0][0]
     sr = philox.stream_round(0, r0)
     a = build_sim_step(code, fcfg, "cuda")(SEED, sr, sigma36)

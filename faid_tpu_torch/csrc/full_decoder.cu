@@ -1,23 +1,21 @@
 // Kernel D: the full decoder, faid_tpu/ops/pallas_decoder.py
 // `make_full_decoder` (`_make_kernel(fuse_bf=True)`), one instance of
-// decoder.cuh's template per method with a BF tail and per stop mode.
+// decoder.cuh's template per method with a BF tail, per message width
+// and per stop mode.
 #include "decoder.cuh"
 
 // llr [B, n_var] int8 -> hard [B, n_var] int8 0/1, mp_iters, bf_rounds
-// [B] int32.  en and msg are scratch as for kernel B, hard2 too for
-// 2B1C, else null.  frame: 1 for frame stop mode.
-extern "C" int faid_full_decoder(int style, int bf, int frame, const void* llr, void* en,
-                                 void* msg, void* hard, void* hard2, void* mp_iters,
-                                 void* bf_rounds, const faid::CodeArgs* args, int batch,
-                                 void* stream) {
-  const faid::Buffers buffers{
-      static_cast<const int8_t*>(llr), static_cast<int8_t*>(en),
-      static_cast<int8_t*>(msg),       static_cast<int8_t*>(hard),
-      static_cast<int8_t*>(hard2),     nullptr,
-      static_cast<int32_t*>(mp_iters), static_cast<int32_t*>(bf_rounds),
-      nullptr,                         0};
+// [B] int32.  frame: 1 for frame stop mode; bits: the message width, 4
+// or 8.  info: see faid::launch (null to launch).
+extern "C" int faid_full_decoder(int style, int bf, int frame, int bits, const void* llr,
+                                 void* hard, void* mp_iters, void* bf_rounds,
+                                 const faid::CodeArgs* args, int batch, void* stream,
+                                 int* info) {
+  const faid::Buffers buffers{static_cast<const int8_t*>(llr), static_cast<int8_t*>(hard),
+                              nullptr, static_cast<int32_t*>(mp_iters),
+                              static_cast<int32_t*>(bf_rounds), nullptr, 0};
   const faid::ChanArgs chan{};
-  switch ((style * 4 + bf) * 2 + frame) {
+  switch (faid::instance_key(style, bf, frame, bits)) {
     FAID_INSTANCE(faid::kHard, faid::kFaid, faid::kBfDtbf)
     FAID_INSTANCE(faid::kHard, faid::kOmsSel, faid::kBfStatic)
     FAID_INSTANCE(faid::kHard, faid::kOmsSel, faid::kBfDtbf)

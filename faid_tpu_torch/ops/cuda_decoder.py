@@ -14,17 +14,22 @@
                 one (NMS, OMS)
 
 The three kernels, and kernel F, are one template (csrc/decoder.cuh)
-over the output, the check-node style, the BF kind and the stop mode,
-instantiated for the (style, BF kind) pairs ``DecoderConfig.for_method``
-produces (``KERNEL_PAIRS``), in both stop modes.
+over the output, the check-node style, the BF kind, the stop mode and
+the message width, instantiated for the (style, BF kind) pairs
+``DecoderConfig.for_method`` produces (``KERNEL_PAIRS``), in both stop
+modes and both widths.  A block holds a few frames' whole decoder state
+in shared memory, and in group mode a thread-block cluster holds one
+32-frame word; ``launch_plan`` picks the width (4-bit messages where
+``msg_bound`` proves |message| <= 7, else 8-bit), the frames a block
+and the shared-memory bytes, and ``DecoderTables.plan`` carries it.
 Each wrapper launches its kernel on a CUDA tensor and takes its plain
 twin (``*_plain``) on a CPU tensor.  The twins are the composition of
 the plain modules (decoders/core.py ``build_decoder(backend="plain")``:
 syndrome, row updates, BF), plus the error count for B; each agrees with
 its kernel bit for bit.
 
-The kernels run codes of row degree <= ``MAX_DEG``; other
-configurations raise before any launch.
+The kernels run codes of row degree <= ``MAX_DEG`` whose block fits
+in shared memory; other configurations raise before any launch.
 """
 
 from __future__ import annotations
@@ -39,10 +44,13 @@ from ..code.qc_matrix import QCCode
 from ..config import DecodeMethod, DecoderConfig
 from ..convert import tables_from_arrays
 from ..decoders import luts
-from ..decoders.bf import GROUP   # frames per stop word == per thread block
+from ..decoders.bf import GROUP   # frames per stop word == per cluster
 
 MAX_DEG = 24     # csrc/decoder.cuh kMaxDeg
 SMEM_LIMIT = 232_448   # shared memory one Hopper block can use, bytes
+# what a block's static shared arrays may take beside the plan's dynamic
+# bytes (ptxas reports at most 512 bytes; chip_smoke.py checks it)
+STATIC_SMEM = 1024
 
 # csrc/decoder.cuh's Style and Bf ids
 NMS, OMS_SELECTIVE, FAID, FAID_EF1 = range(4)
@@ -74,6 +82,86 @@ def kernel_ids(dcfg: DecoderConfig) -> tuple[int, int]:
     return pair
 
 
+def _style_name(dcfg: DecoderConfig) -> str:
+    m = int(dcfg.method)
+    return "nms" if m == 0 else ("oms" if m in (1, 3, 4) else "faid")
+
+
+def msg_bound(dcfg: DecoderConfig) -> int | None:
+    """A bound M on |stored message| for ``dcfg``, or None when no bound
+    <= 48 can be proven (a copy of ``pallas_decoder._msg_bound``).  Every
+    check-node constant is clamped to <= 7; its lower side is what can
+    push a message past 7: never for NMS with factors >= 0 or selective
+    OMS (offsets move a minimum by at most 2), and for FAID and simple
+    OMS the least LUT magnitude (0 for OMS) minus the offset."""
+    style = _style_name(dcfg)
+    if style == "nms":
+        return 7 if (dcfg.factor_1 >= 0 and dcfg.factor_2 >= 0) else None
+    if style == "oms" and dcfg.oms_mode == 1:
+        return 7
+    off = dcfg.oms_offset
+    if style == "oms":
+        lo = min(7, -off)
+    else:
+        lut = luts.table_for(dcfg.lut_family, dcfg.max_iter)
+        lmin = int(lut.min())
+        if dcfg.ef_elimination >= 1:
+            lmin = min(lmin, int(luts.ef_table(dcfg.max_iter).min()))
+        lo = min(7, min(lmin, 31) - off)
+    m = max(7, abs(lo))
+    return m if m <= 48 else None
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the decoder kernels lay a configuration out on the card
+    (csrc/decoder.cuh): ``frames`` frames a block, whose en, messages and
+    check map sit in ``smem_bytes`` of dynamic shared memory; in group
+    mode ``cluster`` blocks make one 32-frame word (frame mode launches
+    the blocks unclustered).  A frame's messages are ``msg_bits`` wide:
+    row r's start at word ``msg_off[r]`` of the frame's ``msg_words``,
+    ``(msg_off[r + 1] - msg_off[r]) / z`` words for each zz."""
+
+    msg_bits: int
+    frames: int
+    cluster: int
+    msg_off: tuple
+    msg_words: int
+    smem_bytes: int
+
+    @property
+    def fits(self) -> bool:
+        return self.smem_bytes + STATIC_SMEM <= SMEM_LIMIT
+
+
+def _row_words(deg: int, bits: int) -> int:
+    """Words of one (row, zz)'s ``deg`` messages of ``bits`` each, made
+    odd so that a warp's 32 threads hit 32 banks."""
+    return -(-deg * bits // 32) | 1
+
+
+def launch_plan(code: QCCode, dcfg: DecoderConfig) -> LaunchPlan:
+    """The kernels' layout of ``dcfg`` on ``code``: 4-bit messages and 4
+    frames a block (clusters of 8) where ``msg_bound`` is at most 7, else
+    8-bit messages and 2 frames a block (clusters of 16).  The message
+    region also holds the BF tail's byte per VN after MP."""
+    bound = msg_bound(dcfg)
+    bits = 4 if bound is not None and bound <= 7 else 8
+    frames = 4 if bits == 4 else 2
+    off = np.concatenate([[0], np.cumsum([_row_words(int(d), bits) * code.z
+                                          for d in code.degrees_np])])
+    words = int(off[-1])
+    has_bf = dcfg.bf.kind != "none"
+    if has_bf:
+        words = max(words, -(-code.n_var // 4))
+    keeps_map = has_bf or _style_id(dcfg) in (OMS_SELECTIVE, FAID_EF1)
+    smem = (-(-frames * code.n_var // 16) * 16 + frames * words * 4
+            + (frames * code.n_block_rows * code.z if keeps_map else 0))
+    return LaunchPlan(msg_bits=bits, frames=frames, cluster=GROUP // frames,
+                      msg_off=tuple(int(x) for x in off), msg_words=words,
+                      smem_bytes=smem)
+
+
 @dataclasses.dataclass(frozen=True)
 class DecoderTables:
     """The code and decoder tables the decoder kernels read, on one
@@ -91,6 +179,8 @@ class DecoderTables:
     vote_shift: torch.Tensor  # and shifts
     lut: torch.Tensor         # [max_iter, 8] FAID magnitudes
     lut_ef: torch.Tensor      # [max_iter, 8] FAID error-floor magnitudes
+    plan: LaunchPlan
+    msg_off: torch.Tensor     # [n_rows + 1] plan.msg_off
 
 
 def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
@@ -127,6 +217,7 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
                                device=device)
 
+    plan = launch_plan(code, dcfg)
     return DecoderTables(
         code=code, dcfg=dcfg, device=device,
         row_ptr=t(np.concatenate([[0], np.cumsum(deg)])),
@@ -134,7 +225,7 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
         vote_ptr=t(np.concatenate([[0], np.cumsum([len(adj[c])
                                                     for c in vote])])),
         vote_row=t(vote_rs[:, 0]), vote_shift=t(vote_rs[:, 1]), lut=lut,
-        lut_ef=lut_ef)
+        lut_ef=lut_ef, plan=plan, msg_off=t(plan.msg_off))
 
 
 def stats_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig,
@@ -168,31 +259,26 @@ def mp_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig):
     return en.reshape(llr.shape[0], code.n_var).to(torch.int8), mp_iters
 
 
-def _kernel_scratch(llr: torch.Tensor, tables: DecoderTables):
-    """Check what the decoder kernels take; returns their scratch (en,
-    msgs)."""
+def _check_llr(llr: torch.Tensor, tables: DecoderTables) -> None:
     code = tables.code
     if (llr.dtype != torch.int8 or llr.shape != (llr.shape[0], code.n_var)
             or not llr.is_contiguous()):
         raise ValueError("llr must be a contiguous int8 [batch, n_var] tensor")
-    return word_scratch(llr.shape[0], tables, llr.device)
+    check_launch(llr.shape[0], tables)
 
 
-def word_scratch(batch: int, tables: DecoderTables, device):
-    """Check the batch and the code against the template's bounds; returns
-    its scratch on ``device``: en [batch, n_var] and msgs [batch,
-    n_entries, z], int8."""
+def check_launch(batch: int, tables: DecoderTables) -> None:
+    """Check the batch and the code against the template's bounds."""
     code = tables.code
     if batch % GROUP or batch == 0:
         raise ValueError(f"batch must be a positive multiple of {GROUP}")
     if code.max_deg > MAX_DEG or code.n_var % code.z:
         raise NotImplementedError(
             f"kernel bounds: row degree <= {MAX_DEG}, n_var % z == 0")
-    if GROUP * code.n_block_rows * code.z > SMEM_LIMIT:
-        raise NotImplementedError("the word's check map exceeds shared memory")
-    msgs = torch.empty((batch, int(tables.ent_col.numel()), code.z),
-                       dtype=torch.int8, device=device)
-    return torch.empty((batch, code.n_var), dtype=torch.int8, device=device), msgs
+    if not tables.plan.fits:
+        raise NotImplementedError(
+            f"{tables.plan.frames} frames' decoder state ({tables.plan.smem_bytes} "
+            f"bytes) exceed a block's shared memory")
 
 
 def code_args(tables: DecoderTables):
@@ -216,7 +302,8 @@ def code_args(tables: DecoderTables):
         n_vote=int(tables.vote_col.numel()), gamma=bf.gamma,
         bf_max_iter=bf.max_iter, delta=bf.delta, l0_max=bf.l0, l1_max=bf.l1,
         alpha=bf.alpha, vote_cap=bf.static_vote_cap,
-        reliability=bf.reliability_threshold)
+        reliability=bf.reliability_threshold, msg_off=tables.msg_off.data_ptr(),
+        msg_words=tables.plan.msg_words)
     return ctypes.byref(args), torch.cuda.current_stream(tables.device).cuda_stream
 
 
@@ -228,13 +315,6 @@ def _on_kernel_device(llr: torch.Tensor, tables: DecoderTables) -> bool:
     if llr.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no decoder kernel for device {llr.device}")
     return llr.device.type == "cuda"
-
-
-def hard_scratch(llr: torch.Tensor, bf: int):
-    """The BF tail's hard bits (None without a tail) and the 2B1C
-    reliability bits (None for another kind)."""
-    return (torch.empty_like(llr) if bf != BF_IDS["none"] else None,
-            torch.empty_like(llr) if bf == BF_IDS["dtbf2b1c"] else None)
 
 
 def ptr(t: torch.Tensor | None):
@@ -272,21 +352,20 @@ def stats_decode(llr: torch.Tensor, tables: DecoderTables,
     if not _on_kernel_device(llr, tables):
         return stats_decode_plain(llr, tables.code, tables.dcfg, ref)
     style, bf = kernel_ids(tables.dcfg)
-    en, msgs = _kernel_scratch(llr, tables)
+    _check_llr(llr, tables)
     from ..utils import kernels
 
     lib = kernels.library()
     batch = llr.shape[0]
-    hard, hard2 = hard_scratch(llr, bf)
     err, iters, rounds = (torch.empty(batch, dtype=torch.int32,
                                       device=llr.device) for _ in range(3))
     with torch.cuda.device(llr.device):
         args, stream = code_args(tables)
         status = lib.faid_stats_decoder(
-            style, bf, frame_mode(tables.dcfg), llr.data_ptr(), en.data_ptr(),
-            msgs.data_ptr(), ptr(hard), ptr(hard2), err.data_ptr(),
-            iters.data_ptr(), rounds.data_ptr(), ptr(ref),
-            0 if ref is None else ref.shape[1], args, batch, stream)
+            style, bf, frame_mode(tables.dcfg), tables.plan.msg_bits,
+            llr.data_ptr(), err.data_ptr(), iters.data_ptr(), rounds.data_ptr(),
+            ptr(ref), 0 if ref is None else ref.shape[1], args, batch, stream,
+            None)
     stats_decode.launches += 1
     kernels.check(status)
     return err, iters, rounds
@@ -306,20 +385,20 @@ def full_decode(llr: torch.Tensor, tables: DecoderTables):
     if bf == BF_IDS["none"]:
         raise ValueError("kernel D runs a BF tail; mp_decode (kernel E) "
                          "decodes a configuration without one")
-    en, msgs = _kernel_scratch(llr, tables)
+    _check_llr(llr, tables)
     from ..utils import kernels
 
     lib = kernels.library()
     batch = llr.shape[0]
-    hard, hard2 = hard_scratch(llr, bf)
+    hard = torch.empty_like(llr)
     iters, rounds = (torch.empty(batch, dtype=torch.int32, device=llr.device)
                      for _ in range(2))
     with torch.cuda.device(llr.device):
         args, stream = code_args(tables)
         status = lib.faid_full_decoder(
-            style, bf, frame_mode(tables.dcfg), llr.data_ptr(), en.data_ptr(),
-            msgs.data_ptr(), hard.data_ptr(), ptr(hard2), iters.data_ptr(),
-            rounds.data_ptr(), args, batch, stream)
+            style, bf, frame_mode(tables.dcfg), tables.plan.msg_bits,
+            llr.data_ptr(), hard.data_ptr(), iters.data_ptr(), rounds.data_ptr(),
+            args, batch, stream, None)
     full_decode.launches += 1
     kernels.check(status)
     return hard, iters, rounds
@@ -338,19 +417,53 @@ def mp_decode(llr: torch.Tensor, tables: DecoderTables):
     if bf != BF_IDS["none"]:
         raise ValueError("kernel E runs no BF tail; full_decode (kernel D) "
                          "decodes a configuration with one")
-    en, msgs = _kernel_scratch(llr, tables)
+    _check_llr(llr, tables)
     from ..utils import kernels
 
     lib = kernels.library()
+    en = torch.empty_like(llr)
     iters = torch.empty(llr.shape[0], dtype=torch.int32, device=llr.device)
     with torch.cuda.device(llr.device):
         args, stream = code_args(tables)
         status = lib.faid_mp_decoder(
-            style, frame_mode(tables.dcfg), llr.data_ptr(), en.data_ptr(),
-            msgs.data_ptr(), iters.data_ptr(), args, llr.shape[0], stream)
+            style, frame_mode(tables.dcfg), tables.plan.msg_bits, llr.data_ptr(),
+            en.data_ptr(), iters.data_ptr(), args, llr.shape[0], stream, None)
     mp_decode.launches += 1
     kernels.check(status)
     return en, iters
 
 
 mp_decode.launches = 0
+
+
+def launch_info(kernel: str, tables: DecoderTables, batch: int = GROUP) -> dict:
+    """What the entry point of kernel ``kernel`` ("B", "D", "E" or "F")
+    would launch for ``tables`` on their CUDA device, without launching:
+    ``active`` clusters a device holds at once (group mode,
+    cudaOccupancyMaxActiveClusters) or blocks an SM holds (frame mode),
+    its dynamic shared bytes, frames a block and blocks a cluster."""
+    from ..utils import kernels
+
+    lib = kernels.library()
+    style, bf = kernel_ids(tables.dcfg)
+    fm, bits = frame_mode(tables.dcfg), tables.plan.msg_bits
+    info = (ctypes.c_int * 4)()
+    where = ctypes.addressof(info)
+    with torch.cuda.device(tables.device):
+        args, stream = code_args(tables)
+        if kernel == "B":
+            status = lib.faid_stats_decoder(style, bf, fm, bits, None, None, None,
+                                            None, None, 0, args, batch, stream, where)
+        elif kernel == "D":
+            status = lib.faid_full_decoder(style, bf, fm, bits, None, None, None,
+                                           None, args, batch, stream, where)
+        elif kernel == "E":
+            status = lib.faid_mp_decoder(style, fm, bits, None, None, None, args,
+                                         batch, stream, where)
+        elif kernel == "F":   # no buffers, QPSK, no thresholds
+            status = lib.faid_fused_sim(style, bf, fm, bits, *[None] * 7, 2, 0, 0, 0,
+                                        0, 0, 0, args, batch, stream, where)
+        else:
+            raise ValueError(f"no decoder kernel {kernel!r}")
+    kernels.check(status)
+    return dict(zip(("active", "smem_bytes", "frames", "cluster"), info))

@@ -94,8 +94,7 @@ def fused_sim(params: torch.Tensor, tables: cd.DecoderTables, *, seed: int,
     cc._check_args(params, batch, code.n_var, quant_bits, cw)
     philox.check_stream_args(seed, rnd, frame0, batch)
     style, bf = cd.kernel_ids(dcfg)
-    en, msgs = cd.word_scratch(batch, tables, dev)
-    hard, hard2 = cd.hard_scratch(en, bf)
+    cd.check_launch(batch, tables)
     out = {k: torch.empty(batch, dtype=torch.int32, device=dev)
            for k in COUNTERS}
     from ..utils import kernels
@@ -105,11 +104,10 @@ def fused_sim(params: torch.Tensor, tables: cd.DecoderTables, *, seed: int,
     with torch.cuda.device(dev):
         args, stream = cd.code_args(tables)
         status = lib.faid_fused_sim(
-            style, bf, cd.frame_mode(dcfg), cd.ptr(cw), en.data_ptr(),
-            msgs.data_ptr(), cd.ptr(hard), cd.ptr(hard2),
+            style, bf, cd.frame_mode(dcfg), tables.plan.msg_bits, cd.ptr(cw),
             *(out[k].data_ptr() for k in COUNTERS), params.data_ptr(),
             mod_type, max(hi, -lo), lo, hi, seed, rnd, frame0, args, batch,
-            stream)
+            stream, None)
     fused_sim.launches += 1
     kernels.check(status)
     return out

@@ -108,15 +108,20 @@ def _check_shape(code: QCCode, cfg: SimConfig) -> None:
             f"symbols and of interleaver rows of depth {cfg.interleave_depth}")
 
 
-def _quantile(cfg: SimConfig) -> bool:
+def quantile_draws(cfg: SimConfig) -> bool:
     """True where the quantile channel draws the round: channel_backend
-    "fused" with a 2-6-bit quantizer.  "fused" with a 1-bit quantizer
-    takes the float chain, with the JAX package's warning
+    "fused" with a 2-6-bit quantizer; else the float chain does."""
+    return cfg.channel_backend == "fused" and cfg.quant_bits in _QUANT_LIMITS
+
+
+def _quantile(cfg: SimConfig) -> bool:
+    """``quantile_draws``, with the JAX package's warning where "fused"
+    with a 1-bit quantizer takes the float chain
     (``_resolve_fused_channel``); a builder asks once per round it
     builds."""
     if cfg.channel_backend != "fused":
         return False
-    if cfg.quant_bits in _QUANT_LIMITS:
+    if quantile_draws(cfg):
         return True
     warnings.warn(
         f"channel_backend='fused' is not supported for this config "

@@ -31,11 +31,12 @@ import warnings
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..code.qc_matrix import QCCode, load_code
 from ..config import SimConfig
 from ..ops import philox
-from .pipeline import build_debug_step, build_sim_loop
+from .pipeline import build_debug_step, build_sim_loop, quantile_draws
 
 COUNTER_KEYS = (
     "test_frames", "error_bits", "error_frames", "lt3_frames",
@@ -96,18 +97,26 @@ _FINGERPRINT_NEUTRAL_FIELDS = (
 )
 
 
-def config_fingerprint(cfg: SimConfig, world_size: int = 1) -> str:
+def config_fingerprint(cfg: SimConfig, world_size: int = 1,
+                       device_type: str = "cuda") -> str:
     """Stable hash of every result-affecting config field, the world size
-    and the random stream's tag.  Stored in checkpoints so resuming under
-    a changed method/SNR-grid/batch/world size/stream starts fresh
-    instead of silently merging incompatible state, while changes to
+    and the random stream's tag, and, where the float chain draws the
+    round, the device type.  Stored in checkpoints so resuming under a
+    changed method/SNR-grid/batch/world size/stream starts fresh instead
+    of silently merging incompatible state, while changes to
     stopping-rule/execution fields (deepening a sweep, switching the
-    bit-exact backend) keep the checkpoint."""
+    bit-exact backend) keep the checkpoint.  The float chain's noise
+    (erfinv) differs between device types, so its rounds, and the
+    replay of their error chunks, belong to one device type; the
+    quantile channels' kernels are bit-exact against their CPU twins, so
+    their checkpoints move between devices."""
     d = dataclasses.asdict(cfg)
     for k in _FINGERPRINT_NEUTRAL_FIELDS:
         d.pop(k, None)
     d["world_size"] = world_size
     d["stream"] = philox.STREAM_TAG
+    if not quantile_draws(cfg):
+        d["device_type"] = device_type
     blob = json.dumps(d, sort_keys=True, default=str)
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
@@ -170,6 +179,7 @@ class MonteCarloRunner:
         self.temp_txt_path = Path(temp_txt_path) if temp_txt_path else None
         self.code = code if code is not None else load_code(cfg.file_name_key())
         self.device = device
+        self._device_type = torch.device(device).type
         self.rounds_per_sync = max(1, cfg.rounds_per_sync)
         self.loop = build_sim_loop(self.code, cfg, self.rounds_per_sync, device)
         self.checkpoint_path = Path(checkpoint_path) if checkpoint_path else None
@@ -193,12 +203,13 @@ class MonteCarloRunner:
         st = json.loads(self.checkpoint_path.read_text())
         if st.get("seed") != self.cfg.seed:
             return  # different experiment; start fresh
-        fp = config_fingerprint(self.cfg, self.world_size)
+        fp = config_fingerprint(self.cfg, self.world_size, self._device_type)
         if st.get("config_fingerprint") != fp:
             warnings.warn(
                 "checkpoint was written by a different simulation config, "
-                "world size or random stream (fingerprint "
-                f"{st.get('config_fingerprint')} != {fp}); starting fresh",
+                "world size, random stream or float-chain device type "
+                f"(fingerprint {st.get('config_fingerprint')} != {fp}); "
+                "starting fresh",
                 stacklevel=2)
             return
         self._state = st["state"]
@@ -211,8 +222,8 @@ class MonteCarloRunner:
         if not self.checkpoint_path:
             return
         st = {"seed": self.cfg.seed,
-              "config_fingerprint": config_fingerprint(self.cfg,
-                                                       self.world_size),
+              "config_fingerprint": config_fingerprint(
+                  self.cfg, self.world_size, self._device_type),
               "world_size": self.world_size,
               "stream": philox.STREAM_TAG,
               "state": self._state,

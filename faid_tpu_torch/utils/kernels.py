@@ -44,7 +44,8 @@ class DecoderArgs(ctypes.Structure):
                     "factor_2", "offset", "sign_backtrack", "floor_err_count",
                     "floor_iter_thresh", "n_vote", "gamma", "bf_max_iter",
                     "delta", "l0_max", "l1_max", "alpha", "vote_cap",
-                    "reliability")])
+                    "reliability")]
+                + [("msg_off", _P), ("msg_words", _I)])
 
 
 _ARGS = ctypes.POINTER(DecoderArgs)
@@ -60,12 +61,12 @@ _SIGNATURES = {
     "faid_qam_channel": (
         [_P] * 5 + [_I] * 9
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
-    "faid_stats_decoder": ([_I] * 3 + [_P] * 9 + [_I, _ARGS, _I, _P], _I),
-    "faid_full_decoder": ([_I] * 3 + [_P] * 7 + [_ARGS, _I, _P], _I),
-    "faid_mp_decoder": ([_I] * 2 + [_P] * 4 + [_ARGS, _I, _P], _I),
+    "faid_stats_decoder": ([_I] * 4 + [_P] * 5 + [_I, _ARGS, _I, _P, _P], _I),
+    "faid_full_decoder": ([_I] * 4 + [_P] * 4 + [_ARGS, _I, _P, _P], _I),
+    "faid_mp_decoder": ([_I] * 3 + [_P] * 3 + [_ARGS, _I, _P, _P], _I),
     "faid_fused_sim": (
-        [_I] * 3 + [_P] * 11 + [_I] * 4
-        + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _ARGS, _I, _P], _I),
+        [_I] * 4 + [_P] * 7 + [_I] * 4
+        + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _ARGS, _I, _P, _P], _I),
     "faid_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -127,8 +128,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# csrc/decoder.cuh kNoCluster: no cluster of a decoder launch fits
+NO_CLUSTER = 0x10000
+
+
 def check(status: int) -> None:
-    """Raise if a kernel entry point returned a CUDA error."""
+    """Raise if a kernel entry point returned a CUDA error, or found that
+    no cluster of its launch fits on the device."""
+    if status == NO_CLUSTER:
+        raise RuntimeError("the decoder's launch fits no cluster on this device "
+                           "(cudaOccupancyMaxActiveClusters gave 0)")
     if status:
         msg = library().faid_error_string(status).decode()
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({status})")

@@ -417,7 +417,8 @@ def test_cli_default_flags_on_cpu(tmp_path, monkeypatch, extra):
     assert (out / "demod.txt").read_text().count("\n") == 3
     assert (out / "iterCount.txt").exists()
     st = json.loads((out / "checkpoint.json").read_text())
-    assert st["config_fingerprint"] == runner.config_fingerprint(cfg)
+    assert st["config_fingerprint"] == runner.config_fingerprint(
+        cfg, device_type="cpu")
     # the tables are the bytes faid_tpu's writers give for the same results
     j = object.__new__(jrunner.MonteCarloRunner)
     j.cfg, j.code = JSimConfig(**_fields(cfg)), jtoy_code()

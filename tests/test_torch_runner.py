@@ -136,6 +136,39 @@ def test_checkpoint_config_fingerprint(tmp_path, monkeypatch):
     assert not resumes(cfg)
 
 
+@pytest.mark.parametrize("backend,quant_bits,moves", [
+    ("xla", 4, False), ("fused", 1, False), ("fused", 4, True)])
+def test_checkpoint_device_type(tmp_path, backend, quant_bits, moves):
+    """A float-chain checkpoint (channel_backend xla, or fused at 1 bit)
+    belongs to the device type that drew its noise: stamped with another
+    device type it starts fresh.  A quantile-channel checkpoint resumes
+    on either device type, its kernels being bit-exact against their
+    CPU twins."""
+    cfg = cfg_at(snr_start=-3.0, snr_pass=1.0, snr_end=-1.0,
+                 channel_backend=backend, quant_bits=quant_bits)
+    ck = tmp_path / "ck.json"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # fused at 1 bit warns
+        r1 = make_runner(cfg, checkpoint_path=ck, max_rounds_per_snr=2)
+        r1.run_snr(0, -3.0)
+        r1._save_checkpoint()
+    saved = json.loads(ck.read_text())
+    assert saved["config_fingerprint"] == runner.config_fingerprint(
+        cfg, device_type="cpu")
+    assert (runner.config_fingerprint(cfg, device_type="cuda")
+            == saved["config_fingerprint"]) == moves
+    ck2 = tmp_path / "ck2.json"
+    ck2.write_text(json.dumps(dict(saved, config_fingerprint=runner.config_fingerprint(
+        cfg, device_type="cuda"))))
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        r2 = make_runner(cfg, checkpoint_path=ck2, max_rounds_per_snr=2)
+    resumed = r2._state == r1._state and len(r2.results) == len(r1.results)
+    assert resumed == moves
+    assert any("device type" in str(x.message) for x in w) != moves
+    assert r2._state["round"] == (r1._state["round"] if moves else 0)
+
+
 def test_sweep_economics_budget():
     """max_frames_per_snr and giveup_zero_error_frames bound the work a
     deep-floor (zero-error) point can burn."""
