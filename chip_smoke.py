@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from faid_tpu_torch/csrc, then:
-  1. prints the card's name and power limit, the kernel build time, and
-     each decoder instance's registers, spills and static shared memory
-     from the build log (ptxas);
+  1. prints the card's name and power limit, the kernel build time with
+     each source's nvcc time, and each of the 216 decoder instances'
+     registers, spills and static shared memory from the build log
+     (ptxas);
   2. kernel A (quantile channel + ModCalErr counts) against its plain
      PyTorch twin, bit for bit, on the full 50G-PON code at batch 2048,
      3.6 and 4.0 dB;
@@ -90,7 +91,19 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
      replay of one error round against the step (the float chain's
      replay gives the float LLRs);
 then CUDA-event timings of kernel G against its twin, of the float
-chain's parts, and of the QAM rounds on both channels, and G's bound.
+chain's parts, and of the QAM rounds on both channels, and G's bound;
+ 21. every decoder configuration of pallas_decoder.supports: kernels B,
+     D (BF tail) and E (none) for each of the 24 (style, BF kind) pairs
+     (NMS, selective OMS, simple-offset OMS, FAID with EF 0, 1 or 2, times
+     none / static / DTBF / 2B1C), both stop modes, against their plain
+     twins bit for bit on kernel A's LLRs at 3.6 and 4.0 dB (50G-PON,
+     batch 2048) and on the toy code at batch 64; every group-mode
+     launch plan against the card's active clusters; the new styles' 8-bit
+     instances (an offset of 8); the frames EF 2 decodes otherwise than
+     EF 0 and EF 1 at 3.6 dB (the phase fails if none); kernel B's EF 2
+     and offset-mode-0 instances timed at 4.0 dB beside their bound.
+     `python3 chip_smoke.py --coverage-only` runs the build and this
+     phase alone.
 Any failed phase exits non-zero before the last line, which is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch and numpy, never JAX.
@@ -139,19 +152,23 @@ PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #     and select, 2 sign xors, negate, add, clip (max, min) = 8;
 #     NMS: pass 1 subtract, the lower clip (max), sign compare, parity
 #     xor, abs, min1/min2 (3) = 8; pass 2 as FAID's plus the abs of the
-#     raw compare = 9; selective OMS: NMS's plus the clip of |v| to 7 in
-#     pass 1 = 9 + 9;
+#     raw compare = 9; selective and simple-offset OMS: NMS's plus the
+#     clip of |v| to 7 in pass 1 = 9 + 9;
 #   row update, per check and MP iteration: the two message magnitudes,
-#     FAID (subtract, min) x 2 = 4; EF 1 adds the floor gate (2 ands) and
-#     the swap of the LUT row (select) = 7; NMS (multiply, shift, min) x 2
-#     = 6 (the int8 saturation cannot bind); selective OMS the gate (2
-#     ands) and, per minimum, the raised and the lowered offsets (2
-#     compares, 2 adds each), the select and the clip to 7 = 2 + 2 x 10;
+#     FAID and simple-offset OMS (subtract, min) x 2 = 4; EF 1 and EF 2
+#     add the floor gate (2 ands) and the swap of the LUT row (select) =
+#     7; NMS (multiply, shift, min) x 2 = 6 (the int8 saturation cannot
+#     bind); selective OMS the gate (2 ands) and, per minimum, the raised
+#     and the lowered offsets (2 compares, 2 adds each), the select and
+#     the clip to 7 = 2 + 2 x 10;
+#   EF 2's erasure, per edge that starts a weight-3 column and MP
+#     iteration in the floor window: the VN's 3 votes (2 adds), the
+#     compare, the frame gate (and) and the select = 5;
 #   syndrome sweep: one xor per edge, and one hard decision (en > 0) per
 #     VN where en changed since the last sweep (every MP sweep, and once
 #     as a BF tail starts; its sweeps read the hard bits); the
-#     map-keeping styles (EF 1, selective OMS) add each frame's count, one
-#     add per check; NMS runs no sweep;
+#     map-keeping styles (EF 1, EF 2, selective OMS) add each frame's
+#     count, one add per check; NMS runs no sweep;
 #   DTBF flip, per weight-gamma bit and round: gamma vote adds, the
 #     disagreement xor, multiply-add, compare, flip xor = gamma + 4; 2B1C
 #     adds the reliability test and the demote select (+2), and seeds the
@@ -162,8 +179,11 @@ PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 PHILOX_OPS = 10 * 8
 PHILOX_KEY_OPS = 9 * 2
 ROW_OPS = {   # style -> (per edge, per check) of one row update
-    "faid": (12 + 8, 4), "faid_ef1": (12 + 8, 7), "nms": (8 + 9, 6),
-    "oms_selective": (9 + 9, 2 + 2 * 10)}
+    "faid": (12 + 8, 4), "faid_ef1": (12 + 8, 7), "faid_ef2": (12 + 8, 7),
+    "nms": (8 + 9, 6), "oms_selective": (9 + 9, 2 + 2 * 10),
+    "oms_offset": (9 + 9, 4)}
+EF2_OPS_PER_ERASING_EDGE = 5
+KEEPS_MAP = ("faid_ef1", "faid_ef2", "oms_selective")
 SYNDROME_OPS_PER_EDGE = 1
 HARD_OPS_PER_VN = 1
 
@@ -189,7 +209,8 @@ METHOD_NAMES = {0: "NMS", 1: "OMS", 2: "FAID_DTBF", 3: "OMS_BF", 4: "OMS_DTBF",
 
 # the decoder template's ids (csrc/decoder.cuh Out, Style, Bf)
 KERNEL_OF_OUT = {0: "B", 1: "D", 2: "E", 3: "F"}
-STYLE_NAMES = {0: "NMS", 1: "OMS", 2: "FAID", 3: "FAID_EF1"}
+STYLE_NAMES = {0: "NMS", 1: "OMS", 2: "FAID", 3: "FAID_EF1", 4: "OMS_OFFSET",
+               5: "FAID_EF2"}
 BF_NAMES = {0: "none", 1: "static", 2: "DTBF", 3: "2B1C"}
 _INSTANCE = re.compile(r"decoder_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELi(\d)E")
 
@@ -277,8 +298,8 @@ def style_key(dcfg) -> str:
     if dcfg.method == 0:
         return "nms"
     if dcfg.method in (1, 3, 4):
-        return "oms_selective"
-    return "faid_ef1" if dcfg.ef_elimination == 1 else "faid"
+        return "oms_selective" if dcfg.oms_mode == 1 else "oms_offset"
+    return ("faid", "faid_ef1", "faid_ef2")[dcfg.ef_elimination]
 
 
 def decoder_ops(code, tables, mp_iters: torch.Tensor,
@@ -306,8 +327,16 @@ def decoder_ops(code, tables, mp_iters: torch.Tensor,
         per_round = int(tables.vote_ptr[-1]) * code.z + 3 * vote_bits
     else:
         per_round = vote_bits * (bfc.gamma + 4 + 2 * (bfc.kind == "dtbf2b1c"))
-    keeps_map = style in ("faid_ef1", "oms_selective")
-    ops = (mp * (edges * per_edge + code.n_chk * per_check)
+    keeps_map = style in KEEPS_MAP
+    if style == "faid_ef2" and dcfg.stop_early:
+        # the iterations in the floor window: index >= max_iter - 1 - thresh
+        first = max(0, dcfg.max_iter - 1 - dcfg.floor_iter_thresh)
+        window = torch.clamp(mp - first, min=0)
+        erasing = int((tables.ef_ptr >= 0).sum()) * code.z
+        ops_ef2 = window * erasing * EF2_OPS_PER_ERASING_EDGE
+    else:
+        ops_ef2 = zero
+    ops = (mp * (edges * per_edge + code.n_chk * per_check) + ops_ef2
            + sweeps * (edges * SYNDROME_OPS_PER_EDGE
                        + code.n_var * HARD_OPS_PER_VN + code.n_chk * keeps_map)
            + tail * code.n_var * (HARD_OPS_PER_VN + 3 * (bfc.kind == "dtbf2b1c"))
@@ -776,8 +805,200 @@ def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
     ms, plain, bnd = g_times[4]
     return dict(launches=g_launches, err=err_g, ms=ms, plain_ms=plain, bound=bnd)
 
+# ---- phase 21: every decoder configuration of pallas_decoder.supports -------
+
+# Each kernel style as (DecodeMethod of for_method, its knobs replaced), and
+# each BF kind as the method whose parameters it takes: NMS at its own
+# factors, OMS offset mode 0 with offset 1, EF 2 on tests/test_ef2.py's
+# pattern (FAID base, the floor window open from the second of 6
+# iterations, no frame gate), so that the erasure fires.
+COVER_STYLES = {0: (0, {"factor_1": 26, "factor_2": 32}), 1: (1, {}),
+                4: (1, {"oms_mode": 0, "oms_offset": 1}), 2: (2, {}), 3: (5, {}),
+                5: (2, {"ef_elimination": 2, "floor_err_count": 100000,
+                        "floor_iter_thresh": 4})}
+COVER_BF = {"none": None, "static": 3, "dtbf": 2, "dtbf2b1c": 5}
+# the 8-bit message width of the two new styles: an offset of 8
+COVER_WIDE = ((5, "dtbf"), (5, "none"), (4, "none"), (4, "static"))
+
+
+def pair_config(style: int, kind: str, stop_mode: str, **fields):
+    """The DecoderConfig of a (style id, BF kind) pair."""
+    from faid_tpu_torch.config import BFConfig, DecodeMethod, DecoderConfig
+
+    method, knobs = COVER_STYLES[style]
+    base = DecoderConfig.for_method(DecodeMethod(method), stop_mode=stop_mode)
+    bf = (BFConfig() if COVER_BF[kind] is None
+          else DecoderConfig.for_method(DecodeMethod(COVER_BF[kind])).bf)
+    return dataclasses.replace(base, bf=bf, **{**knobs, **fields})
+
+
+def decoder_coverage(code, toy, dev, card, reset_counts, counts) -> dict:
+    """Phase 21: kernels B, D and E for every (style, BF kind) pair against
+    their plain twins, both stop modes, on kernel A's LLRs at 3.6 and 4.0
+    dB (50G-PON, batch 2048) and at 2.0 and 3.6 dB (the toy code, batch
+    64); the launch plans against the card; the 8-bit width of the two new
+    styles; EF 2 against EF 0 and EF 1 on the same frames; and kernel B's
+    EF 2 and OMS offset-mode-0 instances timed at 4.0 dB beside their
+    bound.  Returns each kernel's largest difference from its twin."""
+    from faid_tpu_torch import sigma_for
+    from faid_tpu_torch.config import SimConfig
+    from faid_tpu_torch.ops import cuda_channel as cc
+    from faid_tpu_torch.ops import cuda_decoder as cd
+
+    t_phase = time.perf_counter()
+    qcfg = SimConfig(mod_type=2, quant_bits=4, scale=13.0)
+
+    def llrs(c, batch, snrs):
+        out = {}
+        for rnd, snr in enumerate(snrs):
+            params = cc.threshold_ints(qcfg, sigma_for(qcfg, snr)).to(dev)
+            out[snr] = cc.quantile_channel(
+                params, seed=SEED, rnd=21 + rnd, batch=batch, n_var=c.n_var,
+                n_info=c.n_info, mod_type=2, quant_bits=4)[0]
+        return out
+
+    inputs = ((code, "50G-PON", llrs(code, BATCH, (3.6, 4.0))),
+              (toy, "toy", llrs(toy, 64, (2.0, 3.6))))
+    err = {"B": 0, "D": 0, "E": 0}
+    seen = {"B": set(), "D": set(), "E": set()}
+
+    def against_twins(dcfg, c, what, llr_by_snr):
+        t = cd.decoder_tables(c, dcfg, dev)
+        k2 = "E" if dcfg.bf.kind == "none" else "D"
+        line = []
+        for snr, llr in llr_by_snr.items():
+            got_b = cd.stats_decode(llr, t)
+            if k2 == "E":
+                got2, want2 = cd.mp_decode(llr, t), cd.mp_decode_plain(llr, c, dcfg)
+                hard, rounds = want2[0] > 0, torch.zeros_like(want2[1])
+            else:
+                got2, want2 = cd.full_decode(llr, t), cd.full_decode_plain(llr, c, dcfg)
+                hard, rounds = want2[0] != 0, want2[2]
+            # kernel B's twin, stats_decode_plain, is this same plain decode
+            # and its info-bit error count: taken from it, not decoded again
+            want_b = (hard[:, :c.n_info].sum(dim=1, dtype=torch.int32), want2[1], rounds)
+            torch.cuda.synchronize()
+            db, d2 = max_abs_diff(zip(got_b, want_b)), max_abs_diff(zip(got2, want2))
+            check(db == 0 and d2 == 0, f"kernel B or {k2} differs from its twin: {what}, "
+                                       f"{snr} dB (B {db}, {k2} {d2})")
+            err["B"], err[k2] = max(err["B"], db), max(err[k2], d2)
+            line.append(f"{snr} dB: frames in error {int((got_b[0] > 0).sum())}, mp_iters "
+                        f"{int(got_b[1].sum())}, bf_rounds {int(got_b[2].sum())}, B and "
+                        f"{k2} max_abs_err {db} {d2}")
+        print(f"  {what}: " + "; ".join(line))
+        return t, k2
+
+    reset_counts()
+    for style in COVER_STYLES:
+        for kind in COVER_BF:
+            for mode in ("group", "frame"):
+                dcfg = pair_config(style, kind, mode)
+                pair = cd.kernel_ids(dcfg)
+                check(pair == (style, cd.BF_IDS[kind]), f"{dcfg}: kernel ids {pair}")
+                for c, name, lls in inputs:
+                    what = f"{STYLE_NAMES[style]}/{kind} {mode}, {name}"
+                    t, k2 = against_twins(dcfg, c, what, lls)
+                    check(t.plan.msg_bits == 4, f"{what}: plan {t.plan}")
+                seen["B"].add((style, kind, mode))
+                seen[k2].add((style, kind, mode))
+    launched = counts()
+    print(f"phase 21: kernels B, D and E against their twins for every (style, BF "
+          f"kind) pair and stop mode: instances checked B {len(seen['B'])}, D "
+          f"{len(seen['D'])}, E {len(seen['E'])}; launches {launched}; max_abs_err {err}")
+    check(len(seen["B"]) == 48 and len(seen["D"]) == 36 and len(seen["E"]) == 12,
+          f"phase 21 missed an instance: {seen}")
+    check(all(launched[k] > 0 for k in ("B", "D", "E")), f"phase 21 launched {launched}")
+
+    # the launch plans of every group-mode instance against the card's
+    # answer (frame mode launches unclustered blocks of the same plan)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for style in COVER_STYLES:
+        for kind in COVER_BF:
+            t = cd.decoder_tables(code, pair_config(style, kind, "group"), dev)
+            row = []
+            for k in ("B", "E" if kind == "none" else "D"):
+                info = cd.launch_info(k, t, BATCH)
+                check(info["smem_bytes"] == t.plan.smem_bytes and info["active"] > 0
+                      and info["frames"] == t.plan.frames
+                      and info["cluster"] == t.plan.cluster,
+                      f"kernel {k}'s launch differs from its plan: {info}, {t.plan}")
+                row.append(f"{k} {info['active']} clusters of {info['cluster']} "
+                           f"({info['active'] * info['cluster']} of {sms} SMs)")
+            print(f"  launch {STYLE_NAMES[style]}/{kind} group on {card}: "
+                  f"{t.plan.smem_bytes} B a block, {t.plan.frames} frames; "
+                  + ", ".join(row))
+
+    # the 8-bit width of the two new styles
+    for style, kind in COVER_WIDE:
+        for mode in ("group", "frame"):
+            dcfg = pair_config(style, kind, mode, oms_offset=8)
+            for c, name, lls in inputs:
+                what = f"{STYLE_NAMES[style]}/{kind} offset 8 {mode}, {name}"
+                t, _ = against_twins(dcfg, c, what, {s_: l for s_, l in lls.items()
+                                                     if s_ == 3.6})
+                check(t.plan.msg_bits == 8, f"{what}: plan {t.plan}")
+        t = cd.decoder_tables(code, pair_config(style, kind, "group", oms_offset=8), dev)
+        info = cd.launch_info("B", t, BATCH)
+        print(f"  launch {STYLE_NAMES[style]}/{kind} offset 8 group on {card}: kernel B "
+              f"{info['frames']} frames a block, clusters of {info['cluster']}, "
+              f"{info['smem_bytes']} B; cudaOccupancyMaxActiveClusters {info['active']}")
+        check(info["active"] > 0, "no cluster of an 8-bit launch fits")
+
+    # EF 2's erasure changes frames: kernel B's counters against EF 0 (no
+    # swap, no erasure) and EF 1 (the swap alone) on the same frames
+    llr36 = inputs[0][2][3.6]
+    ef2 = pair_config(5, "dtbf", "group")
+    outs = {ef: cd.stats_decode(llr36, cd.decoder_tables(
+                code, dataclasses.replace(ef2, ef_elimination=ef), dev))
+            for ef in (0, 1, 2)}
+    torch.cuda.synchronize()
+
+    def differ(a, b):
+        return int(torch.stack([x != y for x, y in zip(a, b)]).any(dim=0).sum())
+
+    d0, d1 = differ(outs[2], outs[0]), differ(outs[2], outs[1])
+    print(f"EF 2 at 3.6 dB, 50G-PON, {BATCH} frames (kernel B, FAID3/DTBF, group): "
+          f"frames whose (err_bits, mp_iters, bf_rounds) differ from EF 0's {d0}, "
+          f"from EF 1's {d1}; frames in error EF 0 {int((outs[0][0] > 0).sum())}, "
+          f"EF 1 {int((outs[1][0] > 0).sum())}, EF 2 {int((outs[2][0] > 0).sum())}")
+    check(d0 > 0 and d1 > 0, "EF 2 decoded every frame as EF 0 or EF 1 did")
+    # kernel F keeps for_method's pairs, and refuses another before a launch
+    from faid_tpu_torch.ops import cuda_sim as csim
+
+    params36 = cc.threshold_ints(qcfg, sigma_for(qcfg, 3.6)).to(dev)
+    try:
+        csim.fused_sim(params36, cd.decoder_tables(code, ef2, dev), seed=SEED, rnd=1,
+                       batch=BATCH, mod_type=2, quant_bits=4)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "kernel F ran EF 2, for which it has no instance")
+
+    # kernel B's new styles at 4.0 dB: time, twin, bound
+    llr40 = inputs[0][2][4.0]
+    times = {}
+    for label, dcfg in (("FAID_EF2/DTBF", ef2),
+                        ("OMS_OFFSET/none", pair_config(4, "none", "group"))):
+        t = cd.decoder_tables(code, dcfg, dev)
+        ms, plain_ms = in_turns(lambda: cd.stats_decode(llr40, t),
+                                lambda: cd.stats_decode_plain(llr40, code, dcfg), 10, 2)
+        _, iters, rounds = cd.stats_decode(llr40, t)
+        bnd = bound(BATCH * code.n_var + 3 * 4 * BATCH,
+                    decoder_ops(code, t, iters, rounds) + BATCH * code.n_info)
+        times[label] = (ms, plain_ms, bnd)
+        print(f"kernel B {label} at 4.0 dB, batch {BATCH}, group mode ({card}): "
+              f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms by "
+              f"{bnd[1]} ({bnd[0] / ms:.1%}); mp_iters {int(iters.sum())}, bf_rounds "
+              f"{int(rounds.sum())}")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return err
+
 
 def main():
+    # --coverage-only: the build, its ptxas report and phase 21 alone
+    coverage_only = sys.argv[1:] == ["--coverage-only"]
+    if sys.argv[1:] and not coverage_only:
+        fail(f"unknown arguments {sys.argv[1:]}: none, or --coverage-only")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     try:
@@ -821,11 +1042,15 @@ def main():
     kernels.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"({kernels.library_path().name})")
+    print("  " + ", ".join(line for line in kernels.build_log().splitlines()
+                           if line.startswith("nvcc ")))
     ptxas = kernel_ptxas(kernels.build_log())
     decoders = {k: r for k, r in ptxas.items() if isinstance(k, tuple)}
-    check(len(decoders) == 4 * (6 + 4 + 2 + 6)
+    # B for 24 (style, BF kind) pairs, D for 18, E for 6, F for 6; each in
+    # two widths and two stop modes
+    check(len(decoders) == 4 * (24 + 18 + 6 + 6)
           and all("regs" in r for r in ptxas.values()),
-          f"the build log reports {len(decoders)} decoder instances, not 72")
+          f"the build log reports {len(decoders)} decoder instances, not 216")
     for key, r in sorted(ptxas.items(), key=str):
         what = (f"kernel {key[0]} {key[1]}/{key[2]} {key[3]} {key[4]}-bit"
                 if key in decoders else key[:60])
@@ -837,6 +1062,10 @@ def main():
           f"{cd.STATIC_SMEM} B")
 
     code = load_code("50gpon")
+    if coverage_only:
+        decoder_coverage(code, toy_code(), dev, card, reset_counts, counts)
+        print("coverage-only run: every check passed")
+        return
     cfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6,
                     mod_type=2, quant_bits=4, scale=13.0,
                     batch_per_device=BATCH, fake_encode=True,
@@ -1645,6 +1874,9 @@ def main():
     g = qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
                             counts)
     bounds["G"] = g["bound"]
+    cov = decoder_coverage(code, toy, dev, card, reset_counts, counts)
+    err_b, err_d, err_e = (max(err_b, cov["B"]), max(err_d, cov["D"]),
+                           max(err_e, cov["E"]))
 
     def entry(name, key, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": source,

@@ -14,9 +14,9 @@ runs on ``cuda`` unless ``--device cpu`` is given, and fails when the
 device asked for is not there.  The flags are the JAX CLI's, with
 ``--device`` in place of ``--platform``, and the same defaults: the
 float channel chain (``--channel-backend xla``), QPSK, real codewords.
-``--multihost`` and FAID's EF 2 are not ported yet and raise
-NotImplementedError; a value outside the JAX package's configurations
-raises ValueError naming the flag to change.
+``--multihost`` is not ported yet and raises NotImplementedError; a
+value outside the JAX package's configurations raises ValueError naming
+the flag to change.
 """
 
 from __future__ import annotations

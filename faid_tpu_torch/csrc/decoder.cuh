@@ -34,14 +34,20 @@
 // the block's per-frame flags.
 //
 // Styles (compile time): kNms (raw magnitudes, (min * factor) >> 5),
-// kOmsSel (magnitudes clipped to 7, selective offsets), kFaid (LUT
-// magnitudes, EF 0) and kFaidEf1 (the per-check swap to the error-floor
-// row).  The two map-keeping styles, kOmsSel and kFaidEf1, need each
-// frame's whole unsatisfied-check map and count at the iteration top;
-// kNms and kFaid need only "is the word dirty", which the sweep answers
-// with an early exit.  BF kinds (compile time): none, static (every
-// column votes; threshold min(max vote, cap)), DTBF and 2B1C-DTBF.
-// stop_early is a runtime flag: NMS runs every iteration.
+// kOmsSel (magnitudes clipped to 7, selective offsets), kOmsOff (clipped
+// magnitudes, a fixed offset: OMS offset mode 0), kFaid (LUT magnitudes,
+// EF 0), kFaidEf1 (the per-check swap to the error-floor row) and
+// kFaidEf2 (that swap and the one-shot erasure of flip-voted weight-3
+// VNs).  The three map-keeping styles, kOmsSel, kFaidEf1 and kFaidEf2,
+// need each frame's whole unsatisfied-check map and count at the
+// iteration top (EF 2's votes read the map); kNms, kOmsOff and kFaid
+// need only "is the word dirty", which the sweep answers with an early
+// exit.  BF kinds (compile time): none, static (every column votes;
+// threshold min(max vote, cap)), DTBF and 2B1C-DTBF.  Every (style, BF
+// kind) pair is instantiated for kernel B, those with a tail for D, those
+// without for E (one source a style, style_kernels.cuh), and
+// DecoderConfig.for_method's six for F.  stop_early is a runtime flag:
+// NMS runs every iteration.
 //
 // What bounds it on the H100: operations.  A layered iteration does ~20
 // int32 operations per edge (70,400 edges a frame on 50G-PON) on state
@@ -133,7 +139,7 @@ constexpr int kCluster = kGroup / kFrames<kBits>;
 
 // The ids the Python wrappers pass (ops/cuda_decoder.py).
 enum Out { kStats = 0, kHard = 1, kEn = 2, kSim = 3 };
-enum Style { kNms = 0, kOmsSel = 1, kFaid = 2, kFaidEf1 = 3 };
+enum Style { kNms = 0, kOmsSel = 1, kFaid = 2, kFaidEf1 = 3, kOmsOff = 4, kFaidEf2 = 5 };
 enum Bf { kBfNone = 0, kBfStatic = 1, kBfDtbf = 2, kBf2b1c = 3 };
 
 // Field for field utils/kernels.py `DecoderArgs`.
@@ -154,6 +160,11 @@ struct CodeArgs {
                               //   in a frame's region (row r: z groups of
                               //   (msg_off[r+1] - msg_off[r]) / z words)
   int msg_words;              // words of a frame's message region
+  const int32_t* ef_ptr;      // [n_entries] EF 2: the first adjacency entry of
+                              //   the entry's erasing column, -1 where the
+                              //   entry erases nothing
+  const int32_t* ef_row;      // [3 x erasing columns] their block rows
+  const int32_t* ef_shift;    // and shifts
 };
 
 struct Buffers {
@@ -176,9 +187,12 @@ struct ChanArgs {
 };
 
 template <int kStyle>
-constexpr bool kKeepsMap = kStyle == kOmsSel || kStyle == kFaidEf1;
+constexpr bool kKeepsMap = kStyle == kOmsSel || kStyle == kFaidEf1 || kStyle == kFaidEf2;
 template <int kStyle>
-constexpr bool kIsFaid = kStyle == kFaid || kStyle == kFaidEf1;
+constexpr bool kIsFaid = kStyle == kFaid || kStyle == kFaidEf1 || kStyle == kFaidEf2;
+// the styles that swap to the error-floor LUT row in the floor window
+template <int kStyle>
+constexpr bool kSwapsLut = kStyle == kFaidEf1 || kStyle == kFaidEf2;
 
 // The dynamic shared memory of a block of `frames` frames: en, rounded
 // to 16 bytes, then the message words, then the check map where the
@@ -323,10 +337,29 @@ __device__ __forceinline__ int offsel(int m, bool eff, int f1, int f2) {
   return down - (down >= f2);
 }
 
+// EF 2: the flip votes of bit j of an erasing column, from adjacency
+// entry p on (its 3 checks), in one frame's check map uf.
+__device__ __forceinline__ int ef_votes(const uint8_t* uf, int p, int j, const CodeArgs& a) {
+  const int z = a.z;
+  int votes = 0;
+  for (int k = p; k < p + 3; ++k)
+    votes += uf[__ldg(a.ef_row + k) * z + wrap(j - __ldg(a.ef_shift + k) + z, z)];
+  return votes;
+}
+
 // Block row r of one layered iteration for the block's frames.  in_floor,
 // s_lme (per frame: few unsatisfied checks) and the check map open the
 // error-floor window of the map-keeping styles.  Frame mode skips the
 // frozen frames (s_act 0): not a byte of their state is read or written.
+//
+// EF 2 (faid_tpu/ops/cn_update.py:118-133) zeroes the first contribution
+// into a weight-3 VN an iteration where its flip votes (from the
+// iteration-top map) reach 3, in a frame of few unsatisfied checks, in
+// the floor window, and marks the VN.  That condition holds for the whole
+// iteration, rows run in order, and no block column appears twice in a
+// block row (ops/cuda_decoder.py `erasing_entries` checks it), so the
+// first such contribution is the one from the column's lowest row: the
+// entries of a.ef_ptr >= 0.  No per-VN mark is kept.
 template <int kStyle, bool kFrame, int kBits, int kF>
 __device__ void row_update(int8_t* en, uint32_t* msg, const int* s_lut, const int* s_lut_ef,
                            const uint8_t* unsat, const int* s_lme, const int* s_act,
@@ -347,7 +380,21 @@ __device__ void row_update(int8_t* en, uint32_t* msg, const int* s_lut, const in
     if constexpr (kKeepsMap<kStyle>)
       eff = in_floor && s_lme[f] && unsat[(f * a.n_rows + r) * z + zz];
     const int* lut = s_lut;
-    if constexpr (kStyle == kFaidEf1) lut = eff ? s_lut_ef : s_lut;
+    if constexpr (kSwapsLut<kStyle>) lut = eff ? s_lut_ef : s_lut;
+    // EF 2: the row's edges whose contribution is erased, found before
+    // pass 1 so that its registers are free again there
+    uint32_t erase = 0;
+    if constexpr (kStyle == kFaidEf2) {
+      if (in_floor && s_lme[f]) {
+        const uint8_t* uf = unsat + f * a.n_rows * z;
+#pragma unroll 1
+        for (int e = 0; e < deg; ++e) {
+          const int p = __ldg(a.ef_ptr + e0 + e);
+          if (p >= 0 && ef_votes(uf, p, wrap(zz + __ldg(a.ent_shift + e0 + e), z), a) >= 3)
+            erase |= 1u << e;
+        }
+      }
+    }
     uint32_t words[kWords];
 #pragma unroll
     for (int j = 0; j < kWords; ++j) words[j] = j * kPer < deg ? mw[j] : 0u;
@@ -370,6 +417,7 @@ __device__ void row_update(int8_t* en, uint32_t* msg, const int* s_lut, const in
         if constexpr (kIsFaid<kStyle>) {
           // clipped to +-31; a zero contribution may borrow En's sign
           v = min(max(max(vn - m, -128), -kSatVar), kSatVar);
+          if constexpr (kStyle == kFaidEf2) v = (erase >> e) & 1u ? 0 : v;
           neg = (a.sign_backtrack && v == 0 ? vn : v) < 0;
           mag = lut[min(abs(v), 7)];
         } else {
@@ -577,7 +625,7 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
     if constexpr (kIsFaid<kStyle>) {
       if (threadIdx.x < 8) {
         s_lut[threadIdx.x] = a.lut[it * 8 + threadIdx.x];
-        if constexpr (kStyle == kFaidEf1)
+        if constexpr (kSwapsLut<kStyle>)
           s_lut_ef[threadIdx.x] = a.lut_ef[it * 8 + threadIdx.x];
       }
     }
@@ -811,23 +859,21 @@ int launch(const Buffers& b, const CodeArgs& a, const ChanArgs& c, int batch, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// The switch key of an entry point over (style, BF kind, message width,
-// frame mode), -1 for a width other than 4 or 8 bits.
-inline int instance_key(int style, int bf, int frame, int bits) {
-  if (bits != 4 && bits != 8) return -1;
-  return ((style * 4 + bf) * 2 + (bits == 8)) * 2 + frame;
+// An instance for a runtime (stop mode, message width):
+// cudaErrorNotSupported for a width other than 4 or 8 bits.
+template <int kOut, int kStyle, int kBf>
+int launch_modes(int frame, int bits, const Buffers& b, const CodeArgs& a, const ChanArgs& c,
+                 int batch, void* stream, int* info) {
+  if (bits == 4)
+    return frame ? launch<kOut, kStyle, kBf, true, 4>(b, a, c, batch, stream, info)
+                 : launch<kOut, kStyle, kBf, false, 4>(b, a, c, batch, stream, info);
+  if (bits == 8)
+    return frame ? launch<kOut, kStyle, kBf, true, 8>(b, a, c, batch, stream, info)
+                 : launch<kOut, kStyle, kBf, false, 8>(b, a, c, batch, stream, info);
+  return static_cast<int>(cudaErrorNotSupported);
 }
 
-// Four `case`s of an entry point's switch: the instances of the template
-// for a (style, BF kind) pair, 4- and 8-bit, group and frame.
-#define FAID_INSTANCE(OUT, STYLE, BF)                                                   \
-  case (((STYLE) * 4 + (BF)) * 2) * 2:                                                  \
-    return faid::launch<OUT, STYLE, BF, false, 4>(buffers, *args, chan, batch, stream, info); \
-  case (((STYLE) * 4 + (BF)) * 2) * 2 + 1:                                              \
-    return faid::launch<OUT, STYLE, BF, true, 4>(buffers, *args, chan, batch, stream, info);  \
-  case (((STYLE) * 4 + (BF)) * 2 + 1) * 2:                                              \
-    return faid::launch<OUT, STYLE, BF, false, 8>(buffers, *args, chan, batch, stream, info); \
-  case (((STYLE) * 4 + (BF)) * 2 + 1) * 2 + 1:                                          \
-    return faid::launch<OUT, STYLE, BF, true, 8>(buffers, *args, chan, batch, stream, info);
+// The switch key of a (style, BF kind) pair.
+constexpr int pair_key(int style, int bf) { return style * 4 + bf; }
 
 }  // namespace faid

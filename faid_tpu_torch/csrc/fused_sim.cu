@@ -8,6 +8,12 @@
 // counters equal kernel A then kernel B's, frame by frame.
 #include "decoder.cuh"
 
+// One (style, BF kind) pair's case: its four instances.
+#define FAID_SIM_PAIR(STYLE, BF)                                                            \
+  case faid::pair_key(STYLE, BF):                                                           \
+    return faid::launch_modes<faid::kSim, STYLE, BF>(frame, bits, buffers, *args, chan, batch, \
+                                                     stream, info);
+
 // Frames frame0 .. frame0 + B - 1 of stream round `round` through the
 // quantile channel (cw [B, n_var] int8, or null for the all-zero word;
 // params [2L+1] int32 thresholds) and the decoder -> err_bits, mp_iters,
@@ -39,13 +45,13 @@ extern "C" int faid_fused_sim(int style, int bf, int frame, int bits, const void
                             static_cast<uint32_t>(round),
                             static_cast<uint32_t>(round >> 32),
                             frame0};
-  switch (faid::instance_key(style, bf, frame, bits)) {
-    FAID_INSTANCE(faid::kSim, faid::kNms, faid::kBfNone)
-    FAID_INSTANCE(faid::kSim, faid::kOmsSel, faid::kBfNone)
-    FAID_INSTANCE(faid::kSim, faid::kFaid, faid::kBfDtbf)
-    FAID_INSTANCE(faid::kSim, faid::kOmsSel, faid::kBfStatic)
-    FAID_INSTANCE(faid::kSim, faid::kOmsSel, faid::kBfDtbf)
-    FAID_INSTANCE(faid::kSim, faid::kFaidEf1, faid::kBf2b1c)
+  switch (faid::pair_key(style, bf)) {
+    FAID_SIM_PAIR(faid::kNms, faid::kBfNone)
+    FAID_SIM_PAIR(faid::kOmsSel, faid::kBfNone)
+    FAID_SIM_PAIR(faid::kFaid, faid::kBfDtbf)
+    FAID_SIM_PAIR(faid::kOmsSel, faid::kBfStatic)
+    FAID_SIM_PAIR(faid::kOmsSel, faid::kBfDtbf)
+    FAID_SIM_PAIR(faid::kFaidEf1, faid::kBf2b1c)
     default:
       return static_cast<int>(cudaErrorNotSupported);
   }

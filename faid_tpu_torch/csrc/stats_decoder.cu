@@ -1,9 +1,9 @@
 // Kernel B: the stats decoder, faid_tpu/ops/pallas_decoder.py
 // `make_stats_decoder` (`_make_kernel(fuse_bf, fuse_stats=True,
-// fake_ref)`), one instance of decoder.cuh's template per (style, BF
-// kind) that DecoderConfig.for_method produces, per message width and
-// per stop mode.
-#include "decoder.cuh"
+// fake_ref)`): decoder.cuh's template for every (style, BF kind) pair,
+// message width and stop mode, instantiated in the per-style sources
+// (decoder_<style>.cu).
+#include "decoder_entry.cuh"
 
 // llr [B, n_var] int8 -> err_bits, mp_iters, bf_rounds [B] int32, the
 // errors counted against ref [B, ref_stride] int8 (its first n_info
@@ -18,15 +18,6 @@ extern "C" int faid_stats_decoder(int style, int bf, int frame, int bits, const 
                               static_cast<int32_t*>(err_bits), static_cast<int32_t*>(mp_iters),
                               static_cast<int32_t*>(bf_rounds), static_cast<const int8_t*>(ref),
                               ref_stride};
-  const faid::ChanArgs chan{};
-  switch (faid::instance_key(style, bf, frame, bits)) {
-    FAID_INSTANCE(faid::kStats, faid::kNms, faid::kBfNone)
-    FAID_INSTANCE(faid::kStats, faid::kOmsSel, faid::kBfNone)
-    FAID_INSTANCE(faid::kStats, faid::kFaid, faid::kBfDtbf)
-    FAID_INSTANCE(faid::kStats, faid::kOmsSel, faid::kBfStatic)
-    FAID_INSTANCE(faid::kStats, faid::kOmsSel, faid::kBfDtbf)
-    FAID_INSTANCE(faid::kStats, faid::kFaidEf1, faid::kBf2b1c)
-    default:
-      return static_cast<int>(cudaErrorNotSupported);
-  }
+  return faid::launch_decoder(faid::kStats, style, bf, frame, bits, buffers, *args, batch,
+                              stream, info);
 }

@@ -25,8 +25,9 @@ kernel B; on a CPU tensor it takes that kernel's plain twin, the plain
 ``build_decoder`` plus the info-bit error count against the reference
 word.
 
-Not ported: FAID's EF 2.  The plain path and the kernels run both stop
-modes.
+The plain path and the kernels run every configuration of
+``pallas_decoder.supports`` (ops/cuda_decoder.py ``supports``), in both
+stop modes.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 from ..code.qc_matrix import QCCode
 from ..config import DecodeMethod, DecoderConfig
 from ..convert import tables_from_arrays
-from ..ops import cn_update, fixed_point as fp, syndrome as syn
+from ..ops import cn_update, cuda_decoder, fixed_point as fp, syndrome as syn
 from . import bf as bf_mod
 from . import luts
 
@@ -53,19 +54,12 @@ def _style_for(method: DecodeMethod) -> str:
 
 
 BACKENDS = ("auto", "plain")
-BF_KINDS = ("none", "static", "dtbf", "dtbf2b1c")
 
 
 def check_ported(dcfg: DecoderConfig) -> None:
-    """Raise NotImplementedError for a configuration outside the port:
-    FAID's EF 2, and anything ``faid_tpu``'s kernels do not support
-    either (``pallas_decoder.supports``)."""
-    if dcfg.ef_elimination == 2 and _style_for(dcfg.method) == "faid":
-        raise NotImplementedError(
-            "ef_elimination=2 (the one-shot erasure) is not ported yet")
-    if (dcfg.ef_elimination not in (0, 1, 2) or dcfg.oms_mode not in (0, 1)
-            or dcfg.bf.kind not in BF_KINDS
-            or dcfg.stop_mode not in ("frame", "group")):
+    """Raise NotImplementedError for a configuration that ``faid_tpu``'s
+    kernels do not support either (``pallas_decoder.supports``)."""
+    if not cuda_decoder.supports(dcfg):
         raise NotImplementedError(f"no decoder for {dcfg}")
 
 
@@ -108,8 +102,6 @@ def build_decoder(code: QCCode, dcfg: DecoderConfig, backend: str = "auto"):
     plain = _build_plain_decoder(code, dcfg)
     if backend == "plain":
         return plain
-    from ..ops import cuda_decoder
-
     tables = {}     # per device, built at the first call there
 
     def decode(llr: torch.Tensor) -> dict:
@@ -167,6 +159,8 @@ def build_plain_mp(code: QCCode, dcfg: DecoderConfig):
     entry_offsets = np.concatenate([[0], np.cumsum(code.degrees_np)])
     n_entries = int(entry_offsets[-1])
     group = dcfg.stop_mode == "group"
+    needs_votes = (_style_for(dcfg.method) == "faid"
+                   and dcfg.ef_elimination == 2)
 
     def mp(llr: torch.Tensor):
         batch = llr.shape[0]
@@ -177,8 +171,7 @@ def build_plain_mp(code: QCCode, dcfg: DecoderConfig):
                            device=device)
         mp_iters = torch.zeros(batch, dtype=torch.int32, device=device)
         for it in range(dcfg.max_iter):
-            unsat = None
-            l_m_err = None
+            unsat = l_m_err = votes = era = None
             if dcfg.stop_early:
                 # the syndrome at the iteration top: the stop test, and
                 # the floor window's per-check map and per-frame gate
@@ -188,13 +181,18 @@ def build_plain_mp(code: QCCode, dcfg: DecoderConfig):
                 if not bool(active.any()):
                     break
                 l_m_err = count < dcfg.floor_err_count
+                if needs_votes:
+                    # EF 2's votes; its erase marks reset every iteration
+                    votes = syn.flip_votes(unsat, code)
+                    era = torch.zeros_like(en, dtype=torch.bool)
             in_floor = dcfg.max_iter - 1 - it <= dcfg.floor_iter_thresh
             en_new, msgs_new = en, msgs.clone()
             for r in range(code.n_block_rows):
                 lo, hi = int(entry_offsets[r]), int(entry_offsets[r + 1])
                 ctx = cn_update.RowCtx(
                     it=it, in_floor=in_floor, l_m_error_sum=l_m_err,
-                    l_checksum=None if unsat is None else unsat[:, r, :])
+                    l_checksum=None if unsat is None else unsat[:, r, :],
+                    votes=votes, era=era)
                 en_new, msgs_new[:, lo:hi, :] = rows[r](
                     en_new, msgs_new[:, lo:hi, :], ctx)
             if not dcfg.stop_early:
@@ -238,8 +236,6 @@ def build_stats_decoder(code: QCCode, dcfg: DecoderConfig, device):
     ``ref_bits`` (the codeword, or its info bits; None: the all-zero
     word).  A CUDA ``llr`` goes through the stats decoder kernel, a CPU
     one through its plain twin (ops/cuda_decoder.py)."""
-    from ..ops import cuda_decoder
-
     warn_nms_factors(dcfg)
     tables = cuda_decoder.decoder_tables(code, dcfg, device)
 

@@ -12,8 +12,9 @@ Sign convention: LLR > 0 is bit 1, so the message sign is
 
 Styles: ``nms`` (raw magnitudes, ``(min * factor) >> 5``), ``oms``
 (magnitudes clipped to 7; offset mode 0 or the selective offsets of mode
-1) and ``faid`` (per-iteration LUT magnitudes, sign backtrack, EF 0 or
-the EF 1 per-check swap to the error-floor row).  EF 2 raises.
+1) and ``faid`` (per-iteration LUT magnitudes, sign backtrack, EF 0, the
+EF 1 per-check swap to the error-floor row, or EF 2: that swap and the
+one-shot erasure of flip-voted weight-3 VNs).
 """
 
 from __future__ import annotations
@@ -30,13 +31,18 @@ STYLES = ("nms", "oms", "faid")
 
 @dataclasses.dataclass(frozen=True)
 class RowCtx:
-    """Per-iteration, per-block-row context of the selective-OMS and EF 1
-    styles (``faid_tpu.ops.cn_update.RowCtx`` without EF 2's fields)."""
+    """Per-iteration, per-block-row context of the selective-OMS and EF
+    styles (``faid_tpu.ops.cn_update.RowCtx``)."""
 
     it: int = 0                  # iteration index (0-based)
     in_floor: bool = False       # remaining iterations <= floor_iter_thresh
     l_checksum: torch.Tensor | None = None     # [batch, Z] bool: check unsatisfied
     l_m_error_sum: torch.Tensor | None = None  # [batch] bool: count < floor_err_count
+    # EF 2: the flip votes of the iteration-top syndrome, [batch, C, Z]
+    # int32, and the VNs erased so far this iteration, [batch, C, Z]
+    # bool, which the row update marks in place (JAX returns a new array)
+    votes: torch.Tensor | None = None
+    era: torch.Tensor | None = None
 
 
 def _floor_gate(ctx: RowCtx):
@@ -84,18 +90,21 @@ def make_block_row_update(code: QCCode, r: int, *, style: str,
     8] int32 tables on the tensors' device (FAID only)."""
     if style not in STYLES:
         raise ValueError(f"style must be one of {STYLES}, got {style!r}")
-    if style == "faid" and ef_elimination not in (0, 1):
-        raise NotImplementedError(
-            f"ef_elimination={ef_elimination} is not ported yet (EF 0 and 1)")
+    if style == "faid" and ef_elimination not in (0, 1, 2):
+        raise ValueError(f"ef_elimination must be 0, 1 or 2, got {ef_elimination}")
     if style == "oms" and oms_mode not in (0, 1):
         raise ValueError(f"oms_mode must be 0 or 1, got {oms_mode}")
     faid = style == "faid"
-    use_ef = faid and ef_elimination == 1
+    use_ef = faid and ef_elimination >= 1
     selective = style == "oms" and oms_mode == 1
     deg = code.degrees[r]
     cols = code.block_cols[r][:deg]
     shifts = code.shifts[r][:deg]
     odd = bool(deg & 1)
+    # EF 2 erases on the edges into columns of weight 3
+    erasing = ([e for e, c in enumerate(cols)
+                if int(code.vn_weight_blocks_np[c, 0]) == 3]
+               if faid and ef_elimination == 2 else [])
 
     def update(en, msgs_r, ctx: RowCtx):
         vns = [torch.roll(en[:, c, :], -s, dims=-1)
@@ -105,6 +114,17 @@ def make_block_row_update(code: QCCode, r: int, *, style: str,
                for e in range(deg)]
         if faid:
             vcs = [torch.clamp(v, max=fp.SAT_POS_VAR) for v in vcs]
+        if erasing and ctx.votes is not None and ctx.in_floor:
+            # EF 2: in a frame with few unsatisfied checks, the first edge
+            # this iteration into a VN with >= 3 flip votes contributes 0
+            # and marks the VN erased
+            for e in erasing:
+                c, s = cols[e], shifts[e]
+                m = ((torch.roll(ctx.votes[:, c, :], -s, dims=-1) >= 3)
+                     & ctx.l_m_error_sum[:, None]
+                     & ~torch.roll(ctx.era[:, c, :], -s, dims=-1))
+                vcs[e] = torch.where(m, 0, vcs[e])
+                ctx.era[:, c, :] |= torch.roll(m, s, dims=-1)
         if faid and sign_backtrack:
             # A zero contribution borrows the sign of En.
             negs = [torch.where(vcs[e] == 0, vns[e], vcs[e]) < 0

@@ -15,9 +15,14 @@
 
 The three kernels, and kernel F, are one template (csrc/decoder.cuh)
 over the output, the check-node style, the BF kind, the stop mode and
-the message width, instantiated for the (style, BF kind) pairs
-``DecoderConfig.for_method`` produces (``KERNEL_PAIRS``), in both stop
-modes and both widths.  A block holds a few frames' whole decoder state
+the message width.  B is instantiated for every (style, BF kind) pair
+(``KERNEL_PAIRS``: the six styles, NMS, selective OMS, simple-offset
+OMS, FAID with EF 0, 1 or 2, times the four BF kinds), D for the pairs
+with a BF tail, E for those without, so that they run every
+configuration of ``pallas_decoder.supports`` (``supports``); kernel F
+for the pairs ``DecoderConfig.for_method`` produces (``SIM_PAIRS``), the
+only ones a ``SimConfig`` reaches.  Each comes in both stop modes and
+both widths.  A block holds a few frames' whole decoder state
 in shared memory, and in group mode a thread-block cluster holds one
 32-frame word; ``launch_plan`` picks the width (4-bit messages where
 ``msg_bound`` proves |message| <= 7, else 8-bit), the frames a block
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 
 from ..code.qc_matrix import QCCode
-from ..config import DecodeMethod, DecoderConfig
+from ..config import DecoderConfig
 from ..convert import tables_from_arrays
 from ..decoders import luts
 from ..decoders.bf import GROUP   # frames per stop word == per cluster
@@ -53,33 +58,39 @@ SMEM_LIMIT = 232_448   # shared memory one Hopper block can use, bytes
 STATIC_SMEM = 1024
 
 # csrc/decoder.cuh's Style and Bf ids
-NMS, OMS_SELECTIVE, FAID, FAID_EF1 = range(4)
+NMS, OMS_SELECTIVE, FAID, FAID_EF1, OMS_OFFSET, FAID_EF2 = range(6)
 BF_IDS = {"none": 0, "static": 1, "dtbf": 2, "dtbf2b1c": 3}
-# the (style, BF kind) pairs the kernels are instantiated for: those of
-# DecoderConfig.for_method
-KERNEL_PAIRS = frozenset({(NMS, 0), (OMS_SELECTIVE, 0), (FAID, 2),
-                          (OMS_SELECTIVE, 1), (OMS_SELECTIVE, 2),
-                          (FAID_EF1, 3)})
+# kernel B's (style, BF kind) pairs: every style with every BF kind (D
+# takes those with a tail, E those without)
+KERNEL_PAIRS = frozenset((s, b) for s in range(6) for b in range(4))
+# kernel F's: those of DecoderConfig.for_method
+SIM_PAIRS = frozenset({(NMS, 0), (OMS_SELECTIVE, 0), (FAID, 2),
+                       (OMS_SELECTIVE, 1), (OMS_SELECTIVE, 2), (FAID_EF1, 3)})
 
 
-def _style_id(dcfg: DecoderConfig) -> int | None:
-    if dcfg.method == DecodeMethod.NMS:
+def supports(dcfg: DecoderConfig) -> bool:
+    """Whether the decoder kernels run ``dcfg``
+    (``pallas_decoder.supports``): either stop mode, OMS offset mode 0 or
+    1, FAID EF 0, 1 or 2, any BF kind."""
+    return (dcfg.stop_mode in ("frame", "group") and dcfg.oms_mode in (0, 1)
+            and dcfg.ef_elimination in (0, 1, 2) and dcfg.bf.kind in BF_IDS)
+
+
+def _style_id(dcfg: DecoderConfig) -> int:
+    style = _style_name(dcfg)
+    if style == "nms":
         return NMS
-    if dcfg.method in (DecodeMethod.OMS, DecodeMethod.OMS_BF,
-                       DecodeMethod.OMS_DTBF):
-        return OMS_SELECTIVE if dcfg.oms_mode == 1 else None
-    return {0: FAID, 1: FAID_EF1}.get(dcfg.ef_elimination)
+    if style == "oms":
+        return OMS_SELECTIVE if dcfg.oms_mode == 1 else OMS_OFFSET
+    return (FAID, FAID_EF1, FAID_EF2)[dcfg.ef_elimination]
 
 
 def kernel_ids(dcfg: DecoderConfig) -> tuple[int, int]:
     """(style id, BF kind id) of ``dcfg``'s kernel instance; raises
-    NotImplementedError for a pair the kernels are not built for."""
-    pair = (_style_id(dcfg), BF_IDS.get(dcfg.bf.kind))
-    if pair not in KERNEL_PAIRS:
-        raise NotImplementedError(
-            f"the decoder kernels are built for DecoderConfig.for_method's "
-            f"(style, BF kind) pairs; {dcfg} is not one")
-    return pair
+    NotImplementedError for a configuration outside ``supports``."""
+    if not supports(dcfg):
+        raise NotImplementedError(f"no decoder kernel for {dcfg}")
+    return _style_id(dcfg), BF_IDS[dcfg.bf.kind]
 
 
 def _style_name(dcfg: DecoderConfig) -> str:
@@ -154,7 +165,9 @@ def launch_plan(code: QCCode, dcfg: DecoderConfig) -> LaunchPlan:
     has_bf = dcfg.bf.kind != "none"
     if has_bf:
         words = max(words, -(-code.n_var // 4))
-    keeps_map = has_bf or _style_id(dcfg) in (OMS_SELECTIVE, FAID_EF1)
+    # the check map: the BF tail's, and the floor window's and EF 2's votes'
+    # (decoder.cuh kKeepsMap)
+    keeps_map = has_bf or _style_id(dcfg) in (OMS_SELECTIVE, FAID_EF1, FAID_EF2)
     smem = (-(-frames * code.n_var // 16) * 16 + frames * words * 4
             + (frames * code.n_block_rows * code.z if keeps_map else 0))
     return LaunchPlan(msg_bits=bits, frames=frames, cluster=GROUP // frames,
@@ -181,15 +194,45 @@ class DecoderTables:
     lut_ef: torch.Tensor      # [max_iter, 8] FAID error-floor magnitudes
     plan: LaunchPlan
     msg_off: torch.Tensor     # [n_rows + 1] plan.msg_off
+    ef_ptr: torch.Tensor      # [n_entries] EF 2: the entry's erasing column's
+                              #   first adjacency entry, -1 where it erases nothing
+    ef_row: torch.Tensor      # [3 * erasing columns] their block rows
+    ef_shift: torch.Tensor    # and shifts
+
+
+def erasing_entries(code: QCCode) -> dict:
+    """EF 2's erasure as a static rule: {entry: its column's adjacency
+    [(row, shift)] * 3} for each entry that starts a column of weight 3.
+
+    JAX erases at the first edge into an eligible VN each iteration (its
+    ``era`` marks); eligibility (votes >= 3 from the iteration-top map, a
+    frame with few unsatisfied checks, the floor window) holds for the
+    whole iteration, and rows run in order.  So where no block column
+    appears twice in a block row, every VN of a weight-3 column is first
+    reached from the column's lowest block row, and erasing there is
+    JAX's rule with no per-VN marks.  Raises NotImplementedError for a
+    code where a column repeats in a row."""
+    adj = {c: [] for c in range(code.n_block_cols)}
+    first = {}
+    ge = 0
+    for r in range(code.n_block_rows):
+        cols = code.block_cols[r][:code.degrees[r]]
+        if len(set(cols)) != len(cols):
+            raise NotImplementedError(
+                f"block row {r} of {code.name} holds a column twice")
+        for c, s in zip(cols, code.shifts[r][:code.degrees[r]]):
+            first.setdefault(c, ge)
+            adj[c].append((r, s))
+            ge += 1
+    return {first[c]: adj[c] for c in adj if len(adj[c]) == 3}
 
 
 def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
     """The tables of ``dcfg``'s decode on ``device``.  The BF tail votes
     on the columns of weight gamma (DTBF, 2B1C) or on every column
-    (static BF)."""
-    from ..decoders.core import check_ported
-
-    check_ported(dcfg)
+    (static BF); FAID's EF 2 on the columns of weight 3
+    (``erasing_entries``), with tables of its own."""
+    kernel_ids(dcfg)
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         # tensors created on "cuda" report the indexed current device
@@ -217,6 +260,14 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
                                device=device)
 
+    n_entries = int(deg.sum())
+    ef_ptr = np.full(n_entries, -1)
+    ef_adj = []
+    if _style_id(dcfg) == FAID_EF2:
+        for ge, rs in sorted(erasing_entries(code).items()):
+            ef_ptr[ge] = len(ef_adj)
+            ef_adj += rs
+    ef_adj = np.array(ef_adj, dtype=np.int32).reshape(-1, 2)
     plan = launch_plan(code, dcfg)
     return DecoderTables(
         code=code, dcfg=dcfg, device=device,
@@ -225,7 +276,8 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
         vote_ptr=t(np.concatenate([[0], np.cumsum([len(adj[c])
                                                     for c in vote])])),
         vote_row=t(vote_rs[:, 0]), vote_shift=t(vote_rs[:, 1]), lut=lut,
-        lut_ef=lut_ef, plan=plan, msg_off=t(plan.msg_off))
+        lut_ef=lut_ef, plan=plan, msg_off=t(plan.msg_off), ef_ptr=t(ef_ptr),
+        ef_row=t(ef_adj[:, 0]), ef_shift=t(ef_adj[:, 1]))
 
 
 def stats_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig,
@@ -303,7 +355,8 @@ def code_args(tables: DecoderTables):
         bf_max_iter=bf.max_iter, delta=bf.delta, l0_max=bf.l0, l1_max=bf.l1,
         alpha=bf.alpha, vote_cap=bf.static_vote_cap,
         reliability=bf.reliability_threshold, msg_off=tables.msg_off.data_ptr(),
-        msg_words=tables.plan.msg_words)
+        msg_words=tables.plan.msg_words, ef_ptr=tables.ef_ptr.data_ptr(),
+        ef_row=tables.ef_row.data_ptr(), ef_shift=tables.ef_shift.data_ptr())
     return ctypes.byref(args), torch.cuda.current_stream(tables.device).cuda_stream
 
 

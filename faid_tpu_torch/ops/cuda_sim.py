@@ -48,12 +48,7 @@ def supports_sim(code: QCCode, cfg) -> bool:
     (even, odd) bits), info bits that tile into block columns, and a
     batch of whole 32-frame words, on top of the decoder configurations
     the decoder kernels' template covers (``pallas_decoder.supports``)."""
-    dcfg = cfg.decoder()
-    decoder_ok = (dcfg.stop_mode in ("frame", "group")
-                  and dcfg.oms_mode in (0, 1)
-                  and dcfg.ef_elimination in (0, 1, 2)
-                  and dcfg.bf.kind in ("none", "static", "dtbf", "dtbf2b1c"))
-    return (decoder_ok and code.n_info % code.z == 0
+    return (cd.supports(cfg.decoder()) and code.n_info % code.z == 0
             and cfg.mod_type in (1, 2)
             and (cfg.mod_type != 2 or code.z % 2 == 0)
             and cfg.quant_bits in (2, 3, 4, 5, 6)
@@ -94,6 +89,10 @@ def fused_sim(params: torch.Tensor, tables: cd.DecoderTables, *, seed: int,
     cc._check_args(params, batch, code.n_var, quant_bits, cw)
     philox.check_stream_args(seed, rnd, frame0, batch)
     style, bf = cd.kernel_ids(dcfg)
+    if (style, bf) not in cd.SIM_PAIRS:
+        raise NotImplementedError(
+            f"kernel F is built for DecoderConfig.for_method's (style, BF kind) "
+            f"pairs; {dcfg} is not one")
     cd.check_launch(batch, tables)
     out = {k: torch.empty(batch, dtype=torch.int32, device=dev)
            for k in COUNTERS}

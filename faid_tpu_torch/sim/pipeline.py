@@ -78,8 +78,8 @@ def check_ported(cfg: SimConfig, device) -> None:
     """Raise, naming the CLI flag to change, for a round the port cannot
     run on ``device``: ValueError for a configuration outside the JAX
     package's too, and for the plain backend on a CUDA device, where a
-    round runs the kernels only.  (FAID's EF 2 and ``--multihost`` raise
-    NotImplementedError where the decoder and the CLI are built.)"""
+    round runs the kernels only.  (``--multihost`` raises
+    NotImplementedError where the CLI is built.)"""
     check_backend(cfg.backend)
     if torch.device(device).type == "cuda" and cfg.backend != "auto":
         raise ValueError(

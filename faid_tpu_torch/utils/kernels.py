@@ -18,13 +18,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "faid_tpu_torch"
 SOURCES = ("quantile_channel.cu", "stats_decoder.cu", "full_decoder.cu",
-           "mp_decoder.cu", "fused_sim.cu", "qam_channel.cu")
-HEADERS = ("philox.cuh", "staircase.cuh", "decoder.cuh")
+           "mp_decoder.cu", "fused_sim.cu", "qam_channel.cu", "decoder_nms.cu",
+           "decoder_oms_selective.cu", "decoder_oms_offset.cu", "decoder_faid.cu",
+           "decoder_faid_ef1.cu", "decoder_faid_ef2.cu")
+HEADERS = ("philox.cuh", "staircase.cuh", "decoder.cuh", "decoder_entry.cuh",
+           "style_kernels.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,7 +50,8 @@ class DecoderArgs(ctypes.Structure):
                     "floor_iter_thresh", "n_vote", "gamma", "bf_max_iter",
                     "delta", "l0_max", "l1_max", "alpha", "vote_cap",
                     "reliability")]
-                + [("msg_off", _P), ("msg_words", _I)])
+                + [("msg_off", _P), ("msg_words", _I)]
+                + [(name, _P) for name in ("ef_ptr", "ef_row", "ef_shift")])
 
 
 _ARGS = ctypes.POINTER(DecoderArgs)
@@ -103,13 +109,20 @@ def library() -> ctypes.CDLL:
         nvcc = _nvcc()
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
         objs = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
-                                   str(CSRC / s)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(SOURCES, objs)]
-        logs = [p.communicate()[0] for p in procs]
+
+        def compile_one(src, obj):
+            t = time.perf_counter()
+            p = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True, check=False)
+            return p.returncode, f"nvcc {src}: {time.perf_counter() - t:.1f} s\n{p.stdout}"
+
+        # one nvcc per source, all at once; each log is headed by its wall time
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            done = list(pool.map(compile_one, SOURCES, objs))
+        logs = [log for _, log in done]
         link = None
-        if all(p.returncode == 0 for p in procs):
+        if all(rc == 0 for rc, _ in done):
             link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                                   capture_output=True, text=True, check=False)
         for o in objs:

@@ -96,10 +96,31 @@ def test_block_row_update(rng, family, sign_backtrack):
                             cn_update.RowCtx(it=it))
         np.testing.assert_array_equal(got_en.numpy(), np.asarray(want_en))
         np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
-    # FAID's EF 2 is the one style option not ported
-    with pytest.raises(NotImplementedError):
+    # FAID's EF 2 outside the floor window is EF 0's update (the swap and
+    # the erasure wait for it; tests/test_torch_ef2.py holds them)
+    tup = cn_update.make_block_row_update(
+        code, 0, style="faid", oms_offset=0,
+        lut=torch.from_numpy(lut.astype(np.int32)),
+        lut_ef=torch.from_numpy(lut.astype(np.int32)),
+        sign_backtrack=sign_backtrack, ef_elimination=2)
+    en0 = torch.from_numpy(en).to(torch.int32)
+    msgs0 = torch.from_numpy(
+        rng.integers(-7, 8, (8, code.degrees[0], code.z)).astype(np.int8))
+    unsat = torch.ones((8, code.n_block_rows, code.z), dtype=torch.bool)
+    got = tup(en0, msgs0, cn_update.RowCtx(
+        it=1, in_floor=False, l_checksum=unsat[:, 0, :],
+        l_m_error_sum=torch.ones(8, dtype=torch.bool),
+        votes=syndrome.flip_votes(unsat, code),
+        era=torch.zeros_like(en0, dtype=torch.bool)))
+    want = cn_update.make_block_row_update(
+        code, 0, style="faid", oms_offset=0,
+        lut=torch.from_numpy(lut.astype(np.int32)),
+        sign_backtrack=sign_backtrack)(en0, msgs0, cn_update.RowCtx(it=1))
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    with pytest.raises(ValueError):
         cn_update.make_block_row_update(code, 0, style="faid", oms_offset=0,
-                                        lut=None, ef_elimination=2)
+                                        lut=None, ef_elimination=3)
 
 
 @pytest.mark.parametrize("group", [False, True])
@@ -181,22 +202,37 @@ def test_full_code_vs_xla(rng):
 
 
 def test_unported_configs_raise():
-    """FAID's EF 2 raises on any device; every for_method configuration
-    builds; a (style, BF kind) pair outside for_method's is refused by
-    the kernels before a launch (so no card is needed here)."""
+    """Every configuration of pallas_decoder.supports builds and decodes
+    on the CPU and has a kernel instance: FAID's EF 2, simple-offset OMS,
+    every for_method configuration; one outside it (OMS offset mode 2)
+    raises, in build_decoder, build_stats_decoder and before any launch
+    (so no card is needed here)."""
     code = toy_code()
+    llr = torch.from_numpy(np.random.default_rng(4).integers(
+        -7, 8, (32, code.n_var)).astype(np.int8))
     ef2 = dataclasses.replace(
         DecoderConfig.for_method(DecodeMethod.FAID_2B1C), ef_elimination=2)
-    with pytest.raises(NotImplementedError, match="ef_elimination=2"):
-        build_decoder(code, ef2)
-    with pytest.raises(NotImplementedError, match="ef_elimination=2"):
-        build_stats_decoder(code, ef2, "cpu")
+    oms0 = dataclasses.replace(
+        DecoderConfig.for_method(DecodeMethod.OMS_DTBF), oms_mode=0)
+    for dcfg, pair in ((ef2, (cuda_decoder.FAID_EF2, 3)),
+                       (oms0, (cuda_decoder.OMS_OFFSET, 2))):
+        out = build_decoder(code, dcfg)(llr)
+        stats = build_stats_decoder(code, dcfg, "cpu")(llr)
+        np.testing.assert_array_equal(
+            stats["err_bits"].numpy(), out["hard"][:, :code.n_info].sum(dim=1).numpy())
+        assert int(out["bf_rounds"].sum()) > 0
+        assert cuda_decoder.kernel_ids(dcfg) == pair
     for method in DecodeMethod:
         build_decoder(code, DecoderConfig.for_method(method, factor_1=26,
                                                      factor_2=32))
-    with pytest.raises(NotImplementedError, match="for_method"):
-        cuda_decoder.kernel_ids(dataclasses.replace(
-            DecoderConfig.for_method(DecodeMethod.OMS_DTBF), oms_mode=0))
+    bad = dataclasses.replace(DecoderConfig.for_method(DecodeMethod.OMS),
+                              oms_mode=2)
+    with pytest.raises(NotImplementedError, match="no decoder"):
+        build_decoder(code, bad)
+    with pytest.raises(NotImplementedError, match="no decoder"):
+        build_stats_decoder(code, bad, "cpu")
+    with pytest.raises(NotImplementedError, match="no decoder"):
+        cuda_decoder.kernel_ids(bad)
     ok = DecoderConfig.for_method(DecodeMethod.FAID_DTBF,
                                   lut_family=FaidLutFamily.FAID32)
     build_decoder(code, ok)

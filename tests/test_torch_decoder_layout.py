@@ -63,18 +63,33 @@ def _codes():
 
 
 def _configs():
-    """One for_method configuration per kernel pair, and FAID and 2B1C
-    with an offset of 8 (a message reaches 8)."""
+    """One configuration per kernel pair: for_method's six, and every
+    other style with every BF kind (NMS, OMS with offset mode 0, FAID
+    with EF 0, 1 or 2, each with the BF parameters of a method that runs
+    that kind); FAID, 2B1C, EF 2 and simple OMS with an offset of 8 (a
+    message reaches 8)."""
     cfgs = {}
     for m in DecodeMethod:
         for fam in FaidLutFamily:
             d = DecoderConfig.for_method(m, lut_family=fam)
             cfgs.setdefault(cd.kernel_ids(d), d)
+    assert set(cfgs) == cd.SIM_PAIRS
+    bfs = {cd.BF_IDS[d.bf.kind]: d.bf for d in cfgs.values()}
+    styles = {cd.NMS: DecoderConfig.for_method(DecodeMethod.NMS),
+              cd.OMS_SELECTIVE: DecoderConfig.for_method(DecodeMethod.OMS),
+              cd.OMS_OFFSET: dataclasses.replace(
+                  DecoderConfig.for_method(DecodeMethod.OMS), oms_mode=0),
+              cd.FAID: DecoderConfig.for_method(DecodeMethod.FAID_DTBF),
+              cd.FAID_EF1: DecoderConfig.for_method(DecodeMethod.FAID_2B1C),
+              cd.FAID_EF2: dataclasses.replace(
+                  DecoderConfig.for_method(DecodeMethod.FAID_DTBF), ef_elimination=2)}
+    for (s, b) in sorted(cd.KERNEL_PAIRS - set(cfgs)):
+        cfgs[(s, b)] = dataclasses.replace(styles[s], bf=bfs[b])
     assert set(cfgs) == cd.KERNEL_PAIRS
-    out = [(f"{d.method.name}", d) for d in cfgs.values()]
-    out += [(f"{m.name}_offset8", dataclasses.replace(DecoderConfig.for_method(m),
-                                                      oms_offset=8))
-            for m in (DecodeMethod.FAID_DTBF, DecodeMethod.FAID_2B1C)]
+    out = [(f"{d.method.name}_s{s}_bf{b}", d) for (s, b), d in sorted(cfgs.items())]
+    out += [(f"{label}_offset8", dataclasses.replace(styles[s], oms_offset=8))
+            for label, s in (("FAID_DTBF", cd.FAID), ("FAID_2B1C", cd.FAID_EF1),
+                             ("FAID_EF2", cd.FAID_EF2), ("OMS_offset", cd.OMS_OFFSET))]
     return out
 
 
@@ -101,7 +116,8 @@ def test_launch_plan(code_name, label, dcfg):
     assert (words * 32 >= code.degrees_np * plan.msg_bits).all()
     has_bf = dcfg.bf.kind != "none"
     assert plan.msg_words == max(off[-1], -(-code.n_var // 4) if has_bf else 0)
-    keeps_map = has_bf or cd._style_id(dcfg) in (cd.OMS_SELECTIVE, cd.FAID_EF1)
+    keeps_map = has_bf or cd.kernel_ids(dcfg)[0] in (cd.OMS_SELECTIVE, cd.FAID_EF1,
+                                                     cd.FAID_EF2)
     assert plan.smem_bytes == (-(-plan.frames * code.n_var // 16) * 16
                                + plan.frames * plan.msg_words * 4
                                + keeps_map * plan.frames * code.n_block_rows * code.z)
@@ -131,18 +147,49 @@ def test_code_args_match_the_header():
 
 def test_wide_plan_is_launched_not_refused():
     """A configuration whose messages need 8 bits takes the 8-bit plan,
-    which fits on the full code; EF 2 and OMS offset mode 0 stay refused
-    at the kernels' entry."""
+    which fits on the full code; EF 2 and OMS offset mode 0 take their own
+    kernel instances (8-bit with an offset of 8); a configuration outside
+    pallas_decoder.supports is refused at the kernels' entry."""
     code = load_code("50gpon")
-    for m in (DecodeMethod.FAID_DTBF, DecodeMethod.FAID_2B1C):
-        d = dataclasses.replace(DecoderConfig.for_method(m), oms_offset=8)
+    ef2 = dataclasses.replace(DecoderConfig.for_method(DecodeMethod.FAID_DTBF),
+                              ef_elimination=2)
+    oms0 = dataclasses.replace(DecoderConfig.for_method(DecodeMethod.OMS), oms_mode=0)
+    for d, style in ((DecoderConfig.for_method(DecodeMethod.FAID_DTBF), cd.FAID),
+                     (DecoderConfig.for_method(DecodeMethod.FAID_2B1C), cd.FAID_EF1),
+                     (ef2, cd.FAID_EF2), (oms0, cd.OMS_OFFSET)):
+        assert cd.kernel_ids(d)[0] == style
+        assert cd.decoder_tables(code, d, "cpu").plan.msg_bits == 4
+        d = dataclasses.replace(d, oms_offset=8)
         t = cd.decoder_tables(code, d, "cpu")
         assert (t.plan.msg_bits, t.plan.frames, t.plan.cluster) == (8, 2, 16)
         cd.check_launch(64, t)
         assert cd.kernel_ids(d) in cd.KERNEL_PAIRS
     for bad in (dataclasses.replace(DecoderConfig.for_method(DecodeMethod.FAID_DTBF),
-                                    ef_elimination=2),
+                                    ef_elimination=3),
                 dataclasses.replace(DecoderConfig.for_method(DecodeMethod.OMS),
-                                    oms_mode=0)):
-        with pytest.raises(NotImplementedError, match="for_method"):
+                                    oms_mode=2)):
+        with pytest.raises(NotImplementedError, match="no decoder"):
             cd.kernel_ids(bad)
+
+
+def test_build_covers_every_source():
+    """utils/kernels.py compiles every csrc/*.cu and hashes every
+    csrc/*.cuh; the six per-style sources instantiate the six styles of
+    decoder.cuh, and only the entry points include the dispatch over all
+    of them (decoder_entry.cuh), which would otherwise make each
+    per-style unit compile every style's kernels."""
+    assert sorted(kernels.SOURCES) == sorted(p.name for p in CSRC.glob("*.cu"))
+    assert sorted(kernels.HEADERS) == sorted(p.name for p in CSRC.glob("*.cuh"))
+    styles = {}
+    for src in kernels.SOURCES:
+        text = (CSRC / src).read_text()
+        found = re.findall(r"FAID_STYLE_KERNELS\(faid::(\w+)\)", text)
+        if found:
+            styles[src] = found
+            assert '#include "decoder_entry.cuh"' not in text
+    assert sorted(s for v in styles.values() for s in v) == sorted(
+        ["kNms", "kOmsSel", "kOmsOff", "kFaid", "kFaidEf1", "kFaidEf2"])
+    for header in ("style_kernels.cuh", "decoder.cuh"):
+        assert '#include "decoder_entry.cuh"' not in (CSRC / header).read_text()
+    for src in ("stats_decoder.cu", "full_decoder.cu", "mp_decoder.cu"):
+        assert '#include "decoder_entry.cuh"' in (CSRC / src).read_text()

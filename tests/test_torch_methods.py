@@ -230,12 +230,16 @@ def test_nms_factor_warning():
 
 
 def test_kernel_pairs_are_for_methods():
-    """The kernels are built for exactly DecoderConfig.for_method's
-    (style, BF kind) pairs; another pair is refused before a launch."""
+    """Kernel F is built for exactly DecoderConfig.for_method's (style, BF
+    kind) pairs; kernels B, D and E for every style with every BF kind, so
+    OMS offset mode 0 takes its own style; a configuration outside
+    pallas_decoder.supports is refused before a launch."""
     pairs = {cd.kernel_ids(DecoderConfig.for_method(m, lut_family=fam))
              for m in DecodeMethod for fam in FaidLutFamily}
-    assert pairs == cd.KERNEL_PAIRS
+    assert pairs == cd.SIM_PAIRS < cd.KERNEL_PAIRS
+    assert len(cd.KERNEL_PAIRS) == 24
     off = dataclasses.replace(DecoderConfig.for_method(DecodeMethod.OMS),
                               oms_mode=0)
-    with pytest.raises(NotImplementedError, match="for_method"):
-        cd.kernel_ids(off)
+    assert cd.kernel_ids(off) == (cd.OMS_OFFSET, 0)
+    with pytest.raises(NotImplementedError, match="no decoder"):
+        cd.kernel_ids(dataclasses.replace(off, oms_mode=2))

@@ -356,8 +356,8 @@ def test_kernel_f_is_not_the_float_chain(monkeypatch):
 
 def test_check_ported_covers_the_slice():
     """What this slice ports builds, on the CPU and (checked before any
-    table reaches the card) on a CUDA device; bad values and FAID's EF 2
-    still raise."""
+    table reaches the card) on a CUDA device; bad values still raise;
+    FAID's EF 2 decodes, an EF outside 0-2 raises."""
     code = toy_code()
     for kw in (dict(), dict(mod_type=1, quant_bits=1),
                dict(mod_type=8, interleave_depth=3, quant_bits=6),
@@ -375,9 +375,13 @@ def test_check_ported_covers_the_slice():
         build_sim_step(code, _cfg(interleave_depth=5)[0], "cpu")
     ef2 = _cfg(decode_method=DecodeMethod.FAID_2B1C)[0]
     ef2_dcfg = dataclasses.replace(ef2.decoder(), ef_elimination=2)
-    with pytest.raises(NotImplementedError, match="ef_elimination=2"):
-        pipeline.build_stats_decoder(code, ef2_dcfg, "cpu")
     assert isinstance(ef2_dcfg, DecoderConfig)
+    out = pipeline.build_stats_decoder(code, ef2_dcfg, "cpu")(
+        torch.zeros((32, code.n_var), dtype=torch.int8))
+    assert out["err_bits"].shape == (32,)
+    with pytest.raises(NotImplementedError, match="no decoder"):
+        pipeline.build_stats_decoder(
+            code, dataclasses.replace(ef2_dcfg, ef_elimination=3), "cpu")
     # a 1-bit quantizer with the quantile channel falls back to the float
     # chain, with the JAX package's warning
     cfg, _ = _cfg(channel_backend="fused", mod_type=2, interleave_depth=1,
