@@ -74,7 +74,13 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
  17. kernel G (16/64/256-QAM quantile channel) against its plain twin, bit
      for bit, LLRs and map, at batch 2048 on the full code (mod 4/6/8 x
      4/6-bit x depth 1-3, and 3/5/2-bit cases, codewords and the all-zero
-     word) and at batch 64 on the toy code;
+     word), at batch 64 on the toy code, on shapes neither code reaches
+     (rail counts not a multiple of 4, depths 4-6, an unaligned codeword),
+     and on tie thresholds: the plan's at each speed point with entries of
+     every row replaced by the launch's own mirrored words (and +- 1,
+     INT_MIN), 16/64/256-QAM x depth 1-3 x codewords and the zero word, on
+     both codes, each printing how many rails sit on a threshold (the
+     phase fails if none);
  18. kernel G's law: 30 launches of 16-QAM at 8.1 dB (depth 1, 4-bit,
      scale 13, all-zero word), each level's LLR histogram against the
      analytic probabilities of docs/channel_parity.json's 16qam row,
@@ -432,16 +438,18 @@ NOISE_INT_OPS = PHILOX_OPS / 4 + 2
 
 
 def qam_rail_ops(mod_type: int, quant_bits: int, scale: float) -> float:
-    """The least int32 work of kernel G's function, per rail: a quarter of
-    one Philox call, the mirror xor, the magnitude index (a shift-add per
-    magnitude bit), then a binary search of the word among the 2 nparam + 1
-    cells that row m's sorted thresholds and their points cut the words
-    into (a compare and a select a step: every level's LLR and hard
-    decision are step functions of the word, constant on each cell), and
-    per level a read of the cell's (q, hard) from a per-row table, the clip
-    (min, max), level 0's sign restore (xor, sub) and each other level's
-    error xor.  The kernel walks the plan's intervals instead
-    (``qam_walk_ops``)."""
+    """Kernel G's int32 work per rail as counted from the plan's size alone
+    (its bound until the count of the inputs, ``qam_least_ops``): a
+    quarter of one Philox call, the mirror xor, the magnitude index (a
+    shift-add per magnitude bit), then a binary search of the word among
+    the 2 nparam + 1 cells that row m's sorted thresholds and their points
+    cut the words into (a compare and a select a step: every level's LLR
+    and hard decision are step functions of the word, constant on each
+    cell), and per level a read of the cell's (q, hard) from a per-row
+    table, the clip (min, max), level 0's sign restore (xor, sub) and each
+    other level's error xor.  It counts more than the function needs: the
+    rows repeat values, one packed read serves every level, and the map's
+    xor and the symmetric widths' clip fold into the table."""
     from faid_tpu_torch.ops import qam_plan
 
     h = mod_type // 2
@@ -451,10 +459,11 @@ def qam_rail_ops(mod_type: int, quant_bits: int, scale: float) -> float:
 
 
 def qam_walk_ops(mod_type: int, quant_bits: int, scale: float) -> float:
-    """Kernel G's own work, per rail: the same draw, mirror, index and
-    per-level tail, but the walk over every interval of the plan (2
-    compares, an and and an add; one compare and an add for a half-line)
-    in place of the search.  The walk is the same for every rail."""
+    """The work of kernel G's former interval walk (the cell table's search
+    replaced it), per rail: the same draw, mirror, index and per-level
+    tail, but the walk over every interval of the plan (2 compares, an and
+    and an add; one compare and an add for a half-line) in place of the
+    search.  The walk is the same for every rail."""
     from faid_tpu_torch.ops import qam_plan
 
     h = mod_type // 2
@@ -462,6 +471,100 @@ def qam_walk_ops(mod_type: int, quant_bits: int, scale: float) -> float:
     ent = table[4 * h + 1:]
     walk = sum(2 if (v & 0xFFFF) == 0 or (v >> 16) == 0 else 4 for v in ent)
     return PHILOX_OPS / 4 + 1 + (h - 1) + walk + 2 * h + 2 + (h - 1)
+
+
+def qam_least_ops(params, m, mod_type: int, quant_bits: int) -> float:
+    """The least int32 work of kernel G's function on these inputs: per
+    rail (``m`` [batch, rails], each rail's row) a quarter of one Philox
+    call, the mirror xor, the magnitude index (a shift-add per magnitude
+    bit), a binary search of the word among the 2 |U_m| + 1 cells that
+    row m's distinct thresholds U_m cut the words into (a compare and a
+    select a step), one read of the rail's packed cell (every level's LLR
+    and map bit; the map's magnitude xor is folded into the table), level
+    0's sign restore (xor, sub) and, for the asymmetric widths only, its
+    clip (min, max); and the key schedule once."""
+    from faid_tpu_torch.ops.fixed_point import _QUANT_LIMITS
+
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    steps = torch.tensor([math.ceil(math.log2(2 * len(torch.unique(row)) + 1))
+                          for row in params.cpu()])
+    per_row = torch.bincount(m.reshape(-1).cpu(), minlength=len(steps))
+    per_rail = PHILOX_OPS / 4 + 1 + (mod_type // 2 - 1) + 1 + 2 + (2 if -lo != hi else 0)
+    return m.numel() * per_rail + 2 * int((steps * per_row).sum()) + PHILOX_KEY_OPS
+
+
+def kernel_device_ms(fn, reps: int):
+    """(device ms, host ms) per call of fn() over reps calls: the device
+    time of the kernels it launches (torch.profiler), and the host's time
+    to issue one call (without the profiler, whose tracing slows it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3 / reps, host
+
+
+def sm_clock() -> str:
+    """The card's SM clock and its maximum, as nvidia-smi reads them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "not read"
+
+
+def mirrored_rails(c, cw, words):
+    """(ixe, m), each [batch, rails]: every rail's mirrored word and Gray
+    magnitude index for the channel words ``words`` [batch, rails] and the
+    codeword ``cw`` (decoder order; None for the all-zero word, where
+    every rail has row 0 and ixe is its word)."""
+    from faid_tpu_torch.ops import modem
+
+    if cw is None:
+        return words, torch.zeros(words.shape, dtype=torch.int64, device=words.device)
+    h, batch = c.mod_type // 2, words.shape[0]
+    grp = (modem.interleave(cw, c.interleave_depth).to(torch.int64)
+           .reshape(batch, -1, h, 2))
+    m = torch.zeros_like(grp[:, :, 0, :])
+    for lev in range(1, h):
+        m = 2 * m + grp[:, :, lev, :]
+    sign = grp[:, :, 0, :].reshape(batch, -1).to(torch.int32)
+    return words ^ -sign, m.reshape(batch, -1)
+
+
+def tie_thresholds(params, ixe, m, gen):
+    """``params`` with 10 entries of every row m replaced: 5 by mirrored
+    words of rails of row m (of any rail where none has it), 2 by such
+    words + 1, 2 by such words - 1, 1 by INT_MIN."""
+    out = params.clone()
+    nmag, nparam = params.shape
+    for row in range(nmag):
+        pool = ixe[m == row]
+        if pool.numel() == 0:
+            pool = ixe.reshape(-1)
+        pick = torch.randint(pool.numel(), (10,), generator=gen).to(pool.device)
+        vals = pool[pick].to(torch.int64).cpu()
+        vals[5:7] += 1
+        vals[7:9] -= 1
+        vals[9] = -(2**31)
+        cols = torch.randperm(nparam, generator=gen)[:10]
+        out[row, cols.to(out.device)] = vals.clamp(-(2**31), 2**31 - 1).to(
+            torch.int32).to(out.device)
+    return out
 
 
 def parity_rows():
@@ -503,6 +606,11 @@ def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
                     mod_type=c.mod_type, depth=c.interleave_depth,
                     quant_bits=c.quant_bits, scale=c.scale, cw=cw)
 
+    def run_g(params, **kw):
+        """Kernel G on ``params`` with the cell table made for this call."""
+        tables = cc.qam_tables(params, kw["mod_type"], kw["quant_bits"], kw["scale"])
+        return cc.quantile_channel_qam(tables, **kw)
+
     # ---- phase 17: kernel G against its twin, bit for bit -------------------
     cw17 = encode(philox.message_bits(SEED, 17, 0, BATCH, n_info, dev))
     err_g = 0
@@ -514,7 +622,7 @@ def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
             c, sigma_for(c, QAM_POINTS[mod][1][0])).to(dev)
         for cw in (cw17, None):
             kw = g_kw(c, cw, philox.stream_round(17, 1))
-            got = cc.quantile_channel_qam(params, **kw)
+            got = run_g(params, **kw)
             want = cc.quantile_channel_qam_plain(params, **kw)
             torch.cuda.synchronize()
             d_llr = max_abs_diff([(got[0], want[0])])
@@ -535,25 +643,90 @@ def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
         for cw in (tcw, None):
             kw = g_kw(c, cw, 5, batch=64, n_var=toy.n_var)
             kw["frame0"] = 7
-            got = cc.quantile_channel_qam(params, **kw)
+            got = run_g(params, **kw)
             want = cc.quantile_channel_qam_plain(params, **kw)
             d = max_abs_diff(zip(got, want))
             print(f"kernel G vs plain, toy code batch 64, mod {mod}, depth 2, "
                   f"{'codewords' if cw is not None else 'zero word'}: max_abs_err {d}")
             check(d == 0, f"kernel G differs from its twin on the toy code, mod {mod}")
             err_g = max(err_g, d)
+    # shapes neither code reaches: a rail count that is not a multiple of 4
+    # (the r < rails guard), depths past 3 (the interleaver's index map a
+    # byte at a time), a frame's last unit cut short, and a codeword 1 byte
+    # off 16-byte alignment (byte loads)
+    gen = torch.Generator().manual_seed(SEED)
+    for mod, nv, depth in ((4, 100, 1), (4, 100, 2), (4, 100, 5), (6, 90, 3),
+                           (6, 90, 5), (8, 104, 4), (8, 96, 6), (4, n, 4),
+                           (6, n, 6)):
+        c = qcfg(mod, quant_bits=4, interleave_depth=depth)
+        params = qam_plan.plan_threshold_ints(c, sigma_for(c, QAM_POINTS[mod][1][0])).to(dev)
+        rcw = torch.randint(0, 2, (64, nv), generator=gen, dtype=torch.int8).to(dev)
+        for cw in (rcw, None):
+            kw = dict(g_kw(c, cw, 6, batch=64, n_var=nv), frame0=3)
+            d = max_abs_diff(zip(run_g(params, **kw),
+                                 cc.quantile_channel_qam_plain(params, **kw)))
+            print(f"kernel G vs plain, n {nv}, mod {mod}, depth {depth}, "
+                  f"{'codewords' if cw is not None else 'zero word'}: max_abs_err {d}")
+            check(d == 0, f"kernel G differs from its twin: n {nv}, mod {mod}, depth {depth}")
+            err_g = max(err_g, d)
+    buf = torch.zeros(BATCH * n + 1, dtype=torch.int8, device=dev)
+    buf[1:] = cw17.reshape(-1)
+    cw_odd = buf[1:].view(BATCH, n)
+    for mod in (4, 6, 8):
+        c = qcfg(mod, quant_bits=4, interleave_depth=2)
+        params = qam_plan.plan_threshold_ints(c, sigma_for(c, QAM_POINTS[mod][1][0])).to(dev)
+        kw = g_kw(c, cw_odd, 8)
+        d = max_abs_diff(zip(run_g(params, **kw),
+                             cc.quantile_channel_qam_plain(params, **kw)))
+        print(f"kernel G vs plain, mod {mod}, depth 2, codewords at an odd address: "
+              f"max_abs_err {d}")
+        check(d == 0, f"kernel G differs from its twin on an unaligned codeword, mod {mod}")
+        err_g = max(err_g, d)
+    # ties: the plan's thresholds at each speed point, several entries of
+    # every row replaced by the mirrored words of rails of that row in this
+    # very launch, others by those words +- 1 and by INT_MIN; a random word
+    # ties with probability |U| / 2^32, so only words chosen so hold the
+    # equality test
+    for code_name, nv, batch, frame0, cw_t in (("50G-PON", n, BATCH, 0, cw17),
+                                                ("toy code", toy.n_var, 64, 7, tcw)):
+        for mod in (4, 6, 8):
+            for depth in (1, 2, 3):
+                c = qcfg(mod, interleave_depth=depth)
+                params = qam_plan.plan_threshold_ints(
+                    c, sigma_for(c, QAM_POINTS[mod][1][0] + SPEED_OFFSET_DB)).to(dev)
+                for cw in (cw_t, None):
+                    kw = dict(g_kw(c, cw, philox.stream_round(17, 2), batch=batch,
+                                   n_var=nv), frame0=frame0)
+                    words = philox.channel_words(SEED, kw["rnd"], frame0, batch,
+                                                 2 * (nv // mod), dev)
+                    ixe, m = mirrored_rails(c, cw, words)
+                    tp = tie_thresholds(params, ixe, m, gen)
+                    ties = sum(int((torch.isin(ixe, tp[r]) & (m == r)).sum())
+                               for r in range(tp.shape[0]))
+                    d = max_abs_diff(zip(run_g(tp, **kw),
+                                         cc.quantile_channel_qam_plain(tp, **kw)))
+                    print(f"kernel G vs plain on tie thresholds, {code_name} batch "
+                          f"{batch}, mod {mod}, {c.quant_bits}-bit, depth {depth}, "
+                          f"{'codewords' if cw is not None else 'zero word'}: "
+                          f"max_abs_err {d}, {ties} rails on a threshold")
+                    check(d == 0, f"kernel G differs from its twin on tie thresholds: "
+                                  f"{code_name}, mod {mod}, depth {depth}")
+                    check(ties > 0, f"no rail tied: {code_name}, mod {mod}, depth {depth}")
+                    err_g = max(err_g, d)
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 18: kernel G's law against the analytic histogram ------------
     t_phase = time.perf_counter()
     row = next(r for r in parity_rows()["histograms"] if r["label"] == "16qam")
     hcfg = qcfg(4, quant_bits=4, interleave_depth=1)
-    params = qam_plan.plan_threshold_ints(hcfg, sigma_for(hcfg, row["snr_db"])).to(dev)
+    tables = cc.qam_tables(
+        qam_plan.plan_threshold_ints(hcfg, sigma_for(hcfg, row["snr_db"])).to(dev),
+        4, hcfg.quant_bits, hcfg.scale)
     nsym = n // 4
     hist = torch.zeros(2, 16, dtype=torch.int64, device=dev)
     rounds = -(-int(5e8) // (BATCH * nsym * 2))
     for r in range(rounds):
-        llr, _ = cc.quantile_channel_qam(params, **g_kw(hcfg, None,
+        llr, _ = cc.quantile_channel_qam(tables, **g_kw(hcfg, None,
                                                         philox.stream_round(18, r)))
         v = llr.view(BATCH, nsym, 2, 2).to(torch.int64) + 8
         for lev in range(2):
@@ -745,17 +918,40 @@ def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
         snr = waterfall[mod] + SPEED_OFFSET_DB
         params = qam_plan.plan_threshold_ints(c, sigma_for(c, snr)).to(dev)
         kw = g_kw(c, cw_t, 9)
-        ms, plain = in_turns(lambda: cc.quantile_channel_qam(params, **kw),
-                             lambda: cc.quantile_channel_qam_plain(params, **kw), 20, 2)
-        ops = BATCH * (2 * n // mod) * qam_rail_ops(mod, c.quant_bits, c.scale) + PHILOX_KEY_OPS
-        bnd = bound(3 * BATCH * n, ops)
+        # the tables as the sim loop has them: made once per sigma, not timed
+        tables = cc.qam_tables(params, mod, c.quant_bits, c.scale)
+        run = lambda: cc.quantile_channel_qam(tables, **kw)  # noqa: E731
+        ms, plain = in_turns(run, lambda: cc.quantile_channel_qam_plain(params, **kw),
+                             20, 2)
+        rails = 2 * (n // mod)
+        _, m = mirrored_rails(c, cw_t, torch.zeros((BATCH, rails), dtype=torch.int32,
+                                                   device=dev))
+        bnd = bound(3 * BATCH * n, qam_least_ops(params, m, mod, c.quant_bits))
+        plan_bnd = bound(3 * BATCH * n, BATCH * rails * qam_rail_ops(mod, c.quant_bits, c.scale)
+                         + PHILOX_KEY_OPS)
         g_times[mod] = (ms, plain, bnd)
+        width = tables.cells.shape[1]
         print(f"kernel G, {QAM_NAMES[mod]} depth 2, {c.quant_bits}-bit, {snr:.1f} dB, batch "
               f"{BATCH} ({card}), in turns with its twin: {ms:.4f} ms (plain "
-              f"{plain:.4f}); bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.1%}; "
-              f"{qam_rail_ops(mod, c.quant_bits, c.scale):.0f} int32 ops a rail at "
-              f"least, {qam_walk_ops(mod, c.quant_bits, c.scale):.0f} in the kernel's "
-              f"interval walk)")
+              f"{plain:.4f}); bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.1%}; the "
+              f"least work of these inputs, "
+              f"{qam_least_ops(params, m, mod, c.quant_bits) / (BATCH * rails):.1f} int32 "
+              f"ops a rail; the plan-size count of qam_rail_ops, "
+              f"{qam_rail_ops(mod, c.quant_bits, c.scale):.0f} a rail, gives "
+              f"{plan_bnd[0]:.4f} ms by {plan_bnd[1]}; the interval walk the cell table "
+              f"replaced did {qam_walk_ops(mod, c.quant_bits, c.scale):.0f}); cell table "
+              f"{width} entries a row ({width.bit_length() - 1} search steps, "
+              f"{max(len(u) for u in qam_plan.cell_rows(params))} cell bounds in the "
+              f"longest row)")
+        # the spread of G's time: 8 timings of 20 launches back to back, the
+        # kernel's own device time, and the host's time per call
+        reps = sorted(cuda_ms(run, 20) for _ in range(8))
+        dev_ms, host_ms = kernel_device_ms(run, 20)
+        print(f"kernel G, {QAM_NAMES[mod]}, 8 timings of 20 launches ({card}): "
+              + " ".join(f"{t:.4f}" for t in reps)
+              + f" ms (spread {reps[-1] / reps[0] - 1:.1%}); the kernel alone "
+              f"{dev_ms:.4f} ms on the device (torch.profiler), the wrapper "
+              f"{host_ms:.4f} ms a call on the host; SM clock {sm_clock()}")
     for mod in (2, 4, 6, 8):
         c = qcfg(mod)
         snr = waterfall.get(mod, 3.6) + SPEED_OFFSET_DB

@@ -26,7 +26,8 @@ variants:
                         the replay's channel; one word per I/Q rail, every
                         level of the rail a staircase of it (the plan of
                         ops/qam_plan.py: the joint law of the folded
-                        demap's LLRs)
+                        demap's LLRs), looked up in the per-row cell
+                        table of its thresholds (``cell_table``)
 
 On a CUDA tensor each launches its kernel (A and C:
 csrc/quantile_channel.cu); on a CPU tensor it takes its plain twin
@@ -39,14 +40,14 @@ is left to the decoder's ingest, as in the JAX package.
 
 from __future__ import annotations
 
-import functools
+from typing import NamedTuple
 
 import torch
 
 from . import modem, philox
 from .fixed_point import _QUANT_LIMITS
-from .qam_plan import (_plan, grid, plan_table, plan_threshold_ints,
-                       staircase_qam, step_offsets)
+from .qam_plan import (CELL_ENTRY_WORDS, _plan, cell_table, grid,
+                       plan_threshold_ints, staircase_qam, step_offsets)
 
 _AMPLITUDE = {1: 1.0, 2: 0.707107}   # BPSK; QPSK rail
 
@@ -78,19 +79,49 @@ def threshold_ints(cfg, sigma: float) -> torch.Tensor:
     return torch.cat([A, B, H[None]]).to(torch.int32)
 
 
+class QamTables(NamedTuple):
+    """Kernel G's inputs at one sigma, made together by ``qam_tables``:
+    the thresholds ``params`` (``plan_threshold_ints``, what the plain
+    twin walks), their ``cell_table`` (what the kernel searches), both on
+    one device, and the configuration the table was made for."""
+
+    params: torch.Tensor
+    cells: torch.Tensor
+    mod_type: int
+    quant_bits: int
+    scale: float
+
+
+def qam_tables(params: torch.Tensor, mod_type: int, quant_bits: int,
+               scale: float) -> QamTables:
+    """``params`` with its cell table, on ``params``' device."""
+    cells = cell_table(params, mod_type, quant_bits, scale).to(params.device)
+    return QamTables(params, cells, mod_type, quant_bits, float(scale))
+
+
 class ThresholdCache:
     """The quantile channel's thresholds on ``device``, made once per sigma
     (a copy from pageable host memory each round would hold the host to
-    the device): ``threshold_ints`` for BPSK/QPSK, the QAM plan's
-    ``plan_threshold_ints`` for 16/64/256-QAM."""
+    the device): ``threshold_ints`` for BPSK/QPSK; for 16/64/256-QAM a
+    ``QamTables``, the plan's ``plan_threshold_ints`` with the cell table
+    made from them, handed out together so that a table never meets
+    another sigma's thresholds."""
 
     def __init__(self, cfg, device):
         self.cfg, self.device, self.cache = cfg, torch.device(device), {}
-        self.make = threshold_ints if cfg.mod_type in (1, 2) else plan_threshold_ints
 
-    def __call__(self, sigma: float) -> torch.Tensor:
+    def _make(self, sigma: float):
+        cfg = self.cfg
+        if cfg.mod_type in (1, 2):
+            return threshold_ints(cfg, sigma).to(self.device)
+        t = qam_tables(plan_threshold_ints(cfg, sigma), cfg.mod_type,
+                       cfg.quant_bits, cfg.scale)
+        return t._replace(params=t.params.to(self.device),
+                          cells=t.cells.to(self.device))
+
+    def __call__(self, sigma: float):
         if sigma not in self.cache:
-            self.cache[sigma] = self.make(self.cfg, sigma).to(self.device)
+            self.cache[sigma] = self._make(sigma)
         return self.cache[sigma]
 
 
@@ -283,6 +314,22 @@ def _check_qam_args(params, batch, n_var, mod_type, depth, quant_bits, scale, cw
     _check_cw(cw, batch, n_var, params.device)
 
 
+def _check_qam_tables(tables, mod_type, quant_bits, scale):
+    """``QamTables`` made for this configuration; the C entry owns the
+    table's layout limits (its width, its shared memory)."""
+    cells = tables.cells
+    if ((tables.mod_type, tables.quant_bits, tables.scale)
+            != (mod_type, quant_bits, float(scale))):
+        raise ValueError(f"QAM tables made for mod {tables.mod_type}, "
+                         f"{tables.quant_bits}-bit, scale {tables.scale}")
+    if (cells.dtype != torch.int32 or cells.dim() != 3
+            or cells.shape[0] != tables.params.shape[0]
+            or cells.shape[2] != CELL_ENTRY_WORDS
+            or not cells.is_contiguous() or cells.device != tables.params.device):
+        raise ValueError("cells must be the contiguous int32 [nmag, 2^s, 6] "
+                         "cell_table of params, on their device")
+
+
 def quantile_channel_qam_plain(params, *, seed: int, rnd: int, batch: int,
                                n_var: int, mod_type: int, depth: int,
                                quant_bits: int, scale: float, frame0: int = 0,
@@ -306,47 +353,46 @@ def quantile_channel_qam_plain(params, *, seed: int, rnd: int, batch: int,
     return llr, err
 
 
-@functools.lru_cache(maxsize=None)
-def _device_plan(mod_type: int, quant_bits: int, scale: float,
-                 device: torch.device) -> torch.Tensor:
-    return plan_table(mod_type, quant_bits, scale).to(device)
-
-
-def quantile_channel_qam(params, *, seed: int, rnd: int, batch: int,
-                         n_var: int, mod_type: int, depth: int,
+def quantile_channel_qam(tables: QamTables, *, seed: int, rnd: int,
+                         batch: int, n_var: int, mod_type: int, depth: int,
                          quant_bits: int, scale: float, frame0: int = 0,
                          cw=None):
     """Frames ``frame0 ..`` of round ``rnd`` through the 16/64/256-QAM
     quantile channel: one stream word per I/Q rail of the interleaved
     codeword, every level's LLR a staircase of it (the joint law).
 
-    ``params`` is ``plan_threshold_ints`` on the device to run on, ``cw``
-    the [batch, n_var] int8 codeword (decoder order) or None for the
-    all-zero word, ``depth`` the interleaver's.  Returns (llr, mod_err),
-    each [batch, n_var] int8 in decoder order.  A CPU ``params`` takes the
-    plain twin; a CUDA one launches kernel G (csrc/qam_channel.cu)."""
+    ``tables`` is the ``QamTables`` of the sigma, on the device to run on
+    (``ThresholdCache`` makes them once per sigma; ``qam_tables`` for a
+    one-off call), ``cw`` the [batch, n_var] int8 codeword (decoder order)
+    or None for the all-zero word, ``depth`` the interleaver's.  Returns
+    (llr, mod_err), each [batch, n_var] int8 in decoder order.  On the CPU
+    the plain twin walks ``tables.params``; on a CUDA device kernel G
+    (csrc/qam_channel.cu) searches each rail's word in ``tables.cells``,
+    and raises where the table does not fit its shared memory."""
+    params, cells = tables.params, tables.cells
+    _check_qam_args(params, batch, n_var, mod_type, depth, quant_bits, scale, cw)
+    _check_qam_tables(tables, mod_type, quant_bits, scale)
     dev = _kernel_device(params)
     if dev is None:
         return quantile_channel_qam_plain(
             params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
             mod_type=mod_type, depth=depth, quant_bits=quant_bits, scale=scale,
             frame0=frame0, cw=cw)
-    _check_qam_args(params, batch, n_var, mod_type, depth, quant_bits, scale, cw)
     philox.check_stream_args(seed, rnd, frame0, batch)
     from ..utils import kernels
 
     lib = kernels.library()
-    plan = _device_plan(mod_type, quant_bits, float(scale), dev)
     lo, hi = _QUANT_LIMITS[quant_bits]
+    if -lo == hi:               # the symmetric widths take no clip
+        lo, hi = -2**31, 2**31 - 1
     llr = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
     err = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.faid_qam_channel(
             None if cw is None else cw.data_ptr(), llr.data_ptr(),
-            err.data_ptr(), params.data_ptr(), plan.data_ptr(), params.numel(),
-            plan.numel(), params.shape[1], batch, n_var, mod_type, depth, lo,
-            hi, seed, rnd, frame0, stream)
+            err.data_ptr(), cells.data_ptr(), cells.shape[0], cells.shape[1],
+            batch, n_var, mod_type, depth, lo, hi, seed, rnd, frame0, stream)
     quantile_channel_qam.launches += 1
     kernels.check(status)
     return llr, err

@@ -17,8 +17,9 @@ sign restore) and evaluates every level's quantized LLR on it: the exact
 joint law of the rail's LLRs, not only their marginals.
 
 This module is pure PyTorch and numpy: the plan, its thresholds, the
-rail-layout evaluation (the plain twin's core, ops/cuda_channel.py) and
-the flat int32 table that kernel G (csrc/qam_channel.cu) walks.
+rail-layout evaluation (the plain twin's core, ops/cuda_channel.py), the
+flat plan table of the interval walk, and the per-row cell table that
+kernel G (csrc/qam_channel.cu) searches, with its plain lookup.
 """
 
 from __future__ import annotations
@@ -265,3 +266,147 @@ def plan_table(mod_type: int, quant_bits: int, scale: float) -> torch.Tensor:
             starts.append(len(entries))
         bases.append(lplan["base"])
     return torch.tensor(starts + bases + entries, dtype=torch.int32)
+
+
+# Kernel G's cell table, int32 [nmag, 2^s, 6]: entry i of row m is
+#   (U[i], 0, cell 2i word 0, cell 2i word 1, cell 2i + 1 word 0, word 1)
+# with U row m's sorted distinct thresholds and INT_MAX after them (a
+# sentinel cell boundary: it splits no step, since every level is a
+# function of the compares {ixe > T}, {ixe < T}), padded with INT_MAX to
+# 2^s entries, 2^s - 1 >= the longest row's |U|.  A mirrored word ixe of
+# row m lies in cell
+#   c = 2 * #{u in U : u < ixe} + [ixe in U]
+# (even c the open interval below U[c / 2], odd c the point U[c // 2]),
+# and every level's LLR and map bit are constant on a cell.  A cell packs
+#   word 0, byte l: level l's int8 LLR; level 0's before its sign restore
+#                   and the clip (the kernel applies both, in that order),
+#   word 1, byte l: level l's ModCalErr bit: hard_0, and hard_l ^ bit_l(m)
+#                   for l >= 1 (the row fixes the magnitude bits).
+# Open cells with no word in them (u, u + 1) and the unused entries past
+# the sentinel hold zeros; no word lands there.
+CELL_ENTRY_WORDS = 6
+
+
+def cell_rows(params: torch.Tensor) -> list[torch.Tensor]:
+    """Each row's sorted distinct thresholds, INT_MAX appended, int64."""
+    tail = torch.tensor([_IMAX], dtype=torch.int64)
+    return [torch.unique(torch.cat([row.to(torch.int64), tail]))
+            for row in params.cpu()]
+
+
+def cell_width(nparam: int) -> int:
+    """The table's entries a row, 2^s, for the worst case of ``nparam``
+    thresholds, every one distinct (with the sentinel, nparam + 1)."""
+    return 1 << (nparam + 1).bit_length()
+
+
+def _byte(x: torch.Tensor) -> torch.Tensor:
+    """The low byte of int32/int64 values, as an unsigned int64."""
+    return x.to(torch.int64) & 0xFF
+
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> int32 with the same bits."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def _level0(b0: torch.Tensor, mask0: torch.Tensor, quant_bits: int):
+    """Kernel G's level-0 tail: the stored pre-restore byte ``b0`` (int32,
+    sign-extended), the sign restore by ``mask0`` (0 or -1), then the
+    asymmetric clip; the symmetric widths take none."""
+    q = (b0 ^ mask0) - mask0
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    return torch.clamp(q, lo, hi) if -lo != hi else q
+
+
+def cell_table(params: torch.Tensor, mod_type: int, quant_bits: int,
+               scale: float) -> torch.Tensor:
+    """Kernel G's cell table (layout above) for the thresholds ``params``
+    (int32 [nmag, nparam], any values), int32 [nmag, 2^s, 6] on the CPU.
+
+    Each non-empty cell is evaluated once through ``staircase_qam`` at one
+    of its words, for both sign bits; level 0 is stored in the form that
+    the kernel's restore and clip turn into both results."""
+    params = params.cpu()
+    nmag = params.shape[0]
+    h = mod_type // 2
+    rows = cell_rows(params)
+    width = 1 << max(len(u) for u in rows).bit_length()
+    imin = torch.tensor([_IMIN], dtype=torch.int64)
+    u_pad = torch.full((nmag, width), _IMAX, dtype=torch.int64)
+    word = torch.full((nmag, 2 * width), _IMIN, dtype=torch.int64)
+    live = torch.zeros((nmag, 2 * width), dtype=torch.bool)
+    for m, u in enumerate(rows):
+        k = len(u)
+        u_pad[m, :k] = u
+        below = torch.cat([imin, u[:-1] + 1])  # the least word of each open cell
+        word[m, 0:2 * k:2], word[m, 1:2 * k:2] = below, u
+        live[m, 0:2 * k:2], live[m, 1:2 * k:2] = below < u, True
+    m_idx = torch.arange(nmag)[:, None].expand(nmag, 2 * width)
+    mag = [(m_idx >> (h - 1 - l)) & 1 for l in range(1, h)]
+    ix = word.to(torch.int32)
+    zero = torch.zeros_like(ix)
+    kw = dict(mod_type=mod_type, quant_bits=quant_bits, scale=scale)
+    q_pos, hard = staircase_qam(ix, zero, mag, params, **kw)
+    q_neg, hard_neg = staircase_qam(~ix, zero + 1, mag, params, **kw)
+    # level 0's pre-restore value: the plus-sign LLR, or, where the
+    # asymmetric clip cut both signs (q >= hi + 1), hi + 1
+    lo, hi = _QUANT_LIMITS[quant_bits]
+    b0 = q_pos[0]
+    if -lo != hi:
+        b0 = torch.where((q_pos[0] == hi) & (q_neg[0] == lo), hi + 1, b0)
+    b0 = _sext8(b0)                               # the byte the table holds
+    if not (torch.equal(_byte(_level0(b0, zero, quant_bits)), _byte(q_pos[0]))
+            and torch.equal(_byte(_level0(b0, zero - 1, quant_bits)), _byte(q_neg[0]))
+            and all(torch.equal(a, b) for a, b in zip(hard, hard_neg))
+            and all(torch.equal(a, b) for a, b in zip(q_pos[1:], q_neg[1:]))):
+        raise AssertionError("a cell's levels depend on more than its mirrored word")
+    w0 = _byte(b0)
+    w1 = hard[0].to(torch.int64)
+    for l in range(1, h):
+        w0 = w0 | _byte(q_pos[l]) << (8 * l)
+        w1 = w1 | (hard[l].to(torch.int64) ^ mag[l - 1]) << (8 * l)
+    cells = torch.stack([_to_int32(w0), _to_int32(w1)], dim=-1) \
+        * live[..., None]
+    table = torch.zeros((nmag, width, CELL_ENTRY_WORDS), dtype=torch.int32)
+    table[:, :, 0] = u_pad.to(torch.int32)
+    table[:, :, 2:] = cells.reshape(nmag, width, 4)
+    return table
+
+
+def _sext8(x: torch.Tensor) -> torch.Tensor:
+    """The low byte of ``x`` as a signed value, int32."""
+    b = _byte(x)
+    return (b - ((b & 0x80) << 1)).to(torch.int32)
+
+
+def staircase_qam_cells(ix_rail, sign_bit, mag_bits, cells, *, mod_type,
+                        quant_bits):
+    """``staircase_qam`` through the cell table, as kernel G computes it:
+    the mirror, the row m, #{u in U : u < ixe} (``torch.searchsorted``),
+    the equality test against U itself, one read of cell
+    2 #{u < ixe} + [ixe in U], then level 0's sign restore and clip.
+
+    Arguments as for ``staircase_qam``, with ``cells`` (``cell_table``) in
+    place of the thresholds.  Returns (qs, hards) as it does, each LLR
+    the int8 the channel writes, sign-extended to int32: equal to
+    ``staircase_qam``'s modulo 2^8."""
+    mask0 = -(sign_bit != 0).to(torch.int32)
+    ixe = (ix_rail ^ mask0).to(torch.int64)
+    m = torch.as_tensor(magnitude_index(mag_bits), dtype=torch.int64,
+                        device=ixe.device).expand(ixe.shape)
+    cells = cells.to(ixe.device)
+    u = cells[:, :, 0].to(torch.int64)
+    # #{u in U_m : u < ixe} in every row, then each element's own row
+    below = torch.stack([torch.searchsorted(row, ixe) for row in u])
+    pos = below.gather(0, m[None]).squeeze(0)
+    entry = cells.reshape(-1, CELL_ENTRY_WORDS)[m * u.shape[1] + pos]
+    eq = (entry[..., 0].to(torch.int64) == ixe).to(torch.int64)
+    w0, w1 = (entry.gather(-1, (2 + 2 * eq + j)[..., None]).squeeze(-1)
+              .to(torch.int64) for j in (0, 1))
+    qs = [_sext8(_level0(_sext8(w0), mask0, quant_bits))]
+    hards = [_sext8(w1)]
+    for l in range(1, mod_type // 2):
+        qs.append(_sext8(w0 >> (8 * l)))
+        hards.append(_sext8(w1 >> (8 * l)) ^ (mag_bits[l - 1] != 0).to(torch.int32))
+    return qs, hards

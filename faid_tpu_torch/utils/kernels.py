@@ -65,7 +65,7 @@ _SIGNATURES = {
         [_P] * 4 + [_I] * 5
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
     "faid_qam_channel": (
-        [_P] * 5 + [_I] * 9
+        [_P] * 4 + [_I] * 8
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
     "faid_stats_decoder": ([_I] * 4 + [_P] * 5 + [_I, _ARGS, _I, _P, _P], _I),
     "faid_full_decoder": ([_I] * 4 + [_P] * 4 + [_ARGS, _I, _P, _P], _I),

@@ -148,8 +148,9 @@ def test_kernel_g_twin_matches_jax_rail_layout(rng, mod_type, depth,
     kw = dict(seed=9, rnd=philox.stream_round(1, 4), batch=batch, n_var=n,
               mod_type=mod_type, depth=depth, quant_bits=quant_bits,
               scale=cfg.scale, frame0=3)
+    tables = cc.qam_tables(params, mod_type, quant_bits, cfg.scale)
     cc.quantile_channel_qam.launches = 0
-    got = cc.quantile_channel_qam(params, cw=torch.from_numpy(cw), **kw)
+    got = cc.quantile_channel_qam(tables, cw=torch.from_numpy(cw), **kw)
     assert cc.quantile_channel_qam.launches == 0       # the CPU twin
     ix = philox.channel_words(9, kw["rnd"], 3, batch, 2 * (n // mod_type),
                               "cpu").numpy().reshape(batch, -1, 2)
@@ -160,7 +161,7 @@ def test_kernel_g_twin_matches_jax_rail_layout(rng, mod_type, depth,
         np.testing.assert_array_equal(g.numpy(), w)
     assert 0 < got[1].float().mean() < 0.5
     # the all-zero word is cw=None
-    zero = cc.quantile_channel_qam(params, **kw)
+    zero = cc.quantile_channel_qam(tables, **kw)
     want0 = _jax_rail_composition(np.zeros_like(cw), ix, params.numpy(),
                                   mod_type, depth, quant_bits, cfg.scale)
     np.testing.assert_array_equal(zero[0].numpy(), want0[0])
@@ -171,18 +172,19 @@ def test_qam_channel_rejects_bad_args():
     params = qam_plan.plan_threshold_ints(cfg, 0.3)
     kw = dict(seed=0, rnd=0, batch=2, n_var=96, mod_type=4, depth=1,
               quant_bits=4, scale=13.0)
-    cc.quantile_channel_qam(params, **kw)
+    tables = cc.qam_tables(params, 4, 4, 13.0)
+    cc.quantile_channel_qam(tables, **kw)
     for bad in (dict(mod_type=2), dict(quant_bits=1), dict(depth=5),
                 dict(n_var=98), dict(quant_bits=6), dict(depth=0)):
         with pytest.raises(ValueError):
-            cc.quantile_channel_qam(params, **{**kw, **bad})
+            cc.quantile_channel_qam(tables, **{**kw, **bad})
     with pytest.raises(ValueError):
-        cc.quantile_channel_qam(params.to(torch.int64), **kw)
+        cc.quantile_channel_qam(tables._replace(params=params.to(torch.int64)), **kw)
     with pytest.raises(ValueError):
-        cc.quantile_channel_qam(params, cw=torch.zeros(2, 95, dtype=torch.int8),
+        cc.quantile_channel_qam(tables, cw=torch.zeros(2, 95, dtype=torch.int8),
                                 **kw)
     with pytest.raises(ValueError):
-        cc.quantile_channel_qam(params.to("meta"), **kw)
+        cc.quantile_channel_qam(tables._replace(params=params.to("meta")), **kw)
     # 64-QAM at depth 3 on the full code: whole symbols and whole rows,
     # though 17664 is not a multiple of 6 * 3
     p6 = qam_plan.plan_threshold_ints(SimConfig(mod_type=6), 0.3)
