@@ -109,7 +109,29 @@ chain's parts, and of the QAM rounds on both channels, and G's bound;
      EF 0 and EF 1 at 3.6 dB (the phase fails if none); kernel B's EF 2
      and offset-mode-0 instances timed at 4.0 dB beside their bound.
      `python3 chip_smoke.py --coverage-only` runs the build and this
-     phase alone.
+     phase alone;
+ 22. the sharded path (parallel/mesh.py) in worlds of processes started
+     here (tests/_torch_dist.py, torch and the port only, each with a
+     timeout): (a) `python -m faid_tpu_torch.cli --multihost` in a world
+     of 1 under nccl on phase 7's campaign: Result.txt equal to phase 7's
+     in every column but Time(s), demod.txt, iterCount.txt and the dumps
+     byte for byte, kernel F launched; then, in a world of 1 under nccl,
+     build_sharded_sim_loop against build_sim_loop in turns at 4.0 dB
+     (within 2%) and one all-reduce of a call's counters timed; (b) two
+     ranks on the one card over gloo (nccl takes one rank a device), batch
+     1024 each: build_sharded_sim_loop's counters on both ranks equal the
+     one-rank loop's at batch 2048, counter for counter, on F (all-zero
+     word, group mode; codewords, frame mode) and G then B (16-QAM), each
+     rank launching those kernels, and the gloo all-reduce timed; (c) in
+     the same world, MonteCarloRunner on phase 7's campaign: Result.txt
+     (all but Time(s)), demod.txt and iterCount.txt equal phase 7's, rank 0
+     alone writing, its dump (C and D at frame0 1024) phase 7's frame for
+     frame under dev d / frame f <-> frame 1024 d + f, the rerun resumed
+     on both ranks;
+ 23. the bench as a user runs it, `python -m faid_tpu_torch.bench
+     --encode fake` and `--encode random`: the line's keys, its rate
+     within 10% of phase 5's (all-zero word) and phase 15's (codewords)
+     in the same call.
 Any failed phase exits non-zero before the last line, which is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch and numpy, never JAX.
@@ -1190,6 +1212,188 @@ def decoder_coverage(code, toy, dev, card, reset_counts, counts) -> dict:
     return err
 
 
+# ---- phases 22-23: the sharded path (parallel/mesh.py) and the bench -------
+# the files phase 7's campaign writes, compared with the sharded runs'
+CAMPAIGN_FILES = ("Result.txt", "demod.txt", "iterCount.txt", "errorindex.txt",
+                  "errordecode.txt", "errorllr.txt", "errorfloat.txt")
+WORLD_TIMEOUT_S = 300
+# the bench as a user runs it, against phase 5's (fake) and phase 15's
+# (random) rates in the same call
+BENCH_TOLERANCE = 0.10
+
+
+def sharded_path(code, cfg, card, campaign, mbit_zero: float, mbit_codewords: float):
+    """Phase 22: the sharded path on the card, in worlds of processes
+    (tests/_torch_dist.py, torch and the port only); phase 23: the bench."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_dist as td
+    from faid_tpu_torch import build_sim_loop, sigma_for
+
+    t_phase = time.perf_counter()
+    half = BATCH // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) world 1 under nccl: phase 7's campaign with --multihost
+        t0 = time.perf_counter()
+        res = td.launch({"device": "cuda:0", "out": str(tmp / "a"), "cli": {
+            "toy": False, "argv": [*campaign["argv"], "--multihost"]}}, 1,
+            WORLD_TIMEOUT_S)[0]["cli"]
+        out_a = tmp / "a" / "rank0"
+        print(f"phase 22(a): the CLI with --multihost, world 1 under nccl: rc "
+              f"{res['rc']}, launches {res['launches']}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(res["rc"] == 0, "the --multihost CLI failed")
+        check(res["launches"]["F"] > 0 and res["launches"]["A"] == 0,
+              f"the --multihost campaign launched {res['launches']}")
+        check(td.result_rows((out_a / "Result.txt").read_text())
+              == td.result_rows(campaign["files"]["Result.txt"].decode()),
+              "the --multihost Result.txt differs from the plain CLI's")
+        for name in CAMPAIGN_FILES[1:]:
+            check((out_a / name).read_bytes() == campaign["files"][name],
+                  f"the --multihost {name} differs from the plain CLI's")
+        print("  Result.txt (all but Time(s)), demod.txt, iterCount.txt and the "
+              "dumps equal the plain CLI's")
+
+        # (a') world 1 under nccl: the sharded loop, build_sim_loop and one
+        # all-reduce of a call's counters, timed
+        main_fields = dataclasses.asdict(cfg)
+        t0 = time.perf_counter()
+        tim = td.launch({"device": "cuda:0", "backend": "nccl",
+                         "out": str(tmp / "t"), "timing": {
+                             "code": "50gpon", "cfg": main_fields,
+                             "rounds": FER_ROUNDS, "snr": 4.0, "calls": 5}}, 1,
+                        WORLD_TIMEOUT_S)[0]["timing"]
+        plain_ms = sum(tim["plain_ms"]) / 2
+        sharded_ms = sum(tim["sharded_ms"]) / 2
+        mbit = lambda ms: FER_ROUNDS * BATCH * code.n_info / (ms * 1e-3) / 1e6
+        print(f"phase 22(a'): world 1 under nccl at 4.0 dB, batch {BATCH}, "
+              f"{FER_ROUNDS} rounds a call ({card}), in turns: build_sim_loop "
+              f"{tim['plain_ms']} ms = {mbit(plain_ms):.1f} Mbit/s, sharded loop "
+              f"{tim['sharded_ms']} ms = {mbit(sharded_ms):.1f} Mbit/s "
+              f"({sharded_ms / plain_ms - 1:+.3%}); one nccl all-reduce of "
+              f"{tim['values']} int64 counters {tim['all_reduce_ms']:.4f} ms "
+              f"(device), {tim['all_reduce_host_ms']:.4f} ms with its host "
+              f"read, {tim['all_reduce_ms'] / plain_ms:.3%} of a call; "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(abs(sharded_ms / plain_ms - 1) <= 0.02,
+              "the world-1 sharded loop is not within 2% of build_sim_loop")
+
+        # (b) and (c): two ranks on the one card over gloo, b = 1024
+        loops = {
+            "main": dict(main_fields, batch_per_device=half),
+            "codewords_frame": dict(main_fields, batch_per_device=half,
+                                    fake_encode=False, stop_mode="frame"),
+            "qam16": dict(main_fields, batch_per_device=half, fake_encode=False,
+                          mod_type=4, interleave_depth=2),
+        }
+        snrs = {"main": 3.6, "codewords_frame": 3.6, "qam16": 7.5}
+        runner_cfg = dataclasses.asdict(campaign["cfg"])
+        spec = {"device": "cuda:0", "out": str(tmp / "b"),
+                "loops": [{"name": k, "code": "50gpon", "cfg": f,
+                           "rounds": FER_ROUNDS, "snr": snrs[k], "round0": 0}
+                          for k, f in loops.items()],
+                "runner": {"code": "50gpon",
+                           "cfg": dict(runner_cfg, batch_per_device=half),
+                           "max_rounds": 100000, "collect": True},
+                "timing": {"code": "50gpon",
+                           "cfg": dict(main_fields, batch_per_device=half),
+                           "rounds": FER_ROUNDS, "snr": 4.0, "calls": 3}}
+        t0 = time.perf_counter()
+        ranks = td.launch(spec, 2, WORLD_TIMEOUT_S)
+        print(f"phase 22(b, c): two ranks on cuda:0 over gloo, batch {half} "
+              f"each: {time.perf_counter() - t0:.1f} s")
+        check([r["size"] for r in ranks] == [2, 2], "the world is not of 2")
+        for name, fields in loops.items():
+            one = td.sim_config(dict(fields, batch_per_device=BATCH))
+            want = {k: v.tolist() for k, v in build_sim_loop(
+                code, one, FER_ROUNDS, "cuda")(one.seed,
+                                                sigma_for(one, snrs[name]), 0).items()}
+            kernels_used = ("G", "B") if one.mod_type == 4 else ("F",)
+            for r in ranks:
+                got = r["loops"][name]
+                print(f"  rank {r['rank']}, {name} at {snrs[name]} dB: error_frames "
+                      f"{got['counters']['error_frames']} of "
+                      f"{got['counters']['test_frames']}, launches {got['launches']}")
+                check(got["counters"] == want,
+                      f"rank {r['rank']}'s {name} counters differ from the "
+                      f"one-rank loop's at batch {BATCH}")
+                check(all(got["launches"][k] > 0 for k in kernels_used),
+                      f"rank {r['rank']}'s {name} did not launch {kernels_used}")
+                check(got["counters"]["error_frames"] > 0 and
+                      got["counters"]["mod_error_bits"] > 0,
+                      f"no noise or no errors in {name}")
+        print(f"  each rank's counters equal build_sim_loop's at batch {BATCH}, "
+              "counter for counter, on F (zero word, group; codewords, frame) "
+              "and G then B (16-QAM)")
+        for r in ranks:
+            t = r["timing"]
+            print(f"  rank {r['rank']}: one gloo all-reduce of {t['values']} "
+                  f"int64 counters on cuda:0 {t['all_reduce_ms']:.4f} ms "
+                  f"(device), {t['all_reduce_host_ms']:.4f} ms with its host "
+                  f"read; the sharded loop {t['sharded_ms']} ms a call of "
+                  f"{FER_ROUNDS} rounds, two ranks sharing the card")
+
+        lead, other = (r["runner"] for r in ranks)
+        out_c = tmp / "b" / "rank0"
+        print(f"phase 22(c): the runner at world 2: sweep {lead['sweep_s']:.3f} s, "
+              f"launches {lead['sweep_launches']} / {other['sweep_launches']}; "
+              f"replay on rank 0 {lead['replay_launches']}, {lead['dumped']} "
+              f"frames dumped; the rerun's rounds {lead['resume_calls']} / "
+              f"{other['resume_calls']}")
+        check(not (tmp / "b" / "rank1").exists(), "rank 1 wrote files")
+        check(lead["counters"] == other["counters"] == campaign["counters"],
+              "the world-2 runner's counters differ from the plain CLI's")
+        check(td.result_rows((out_c / "Result.txt").read_text())
+              == td.result_rows(campaign["files"]["Result.txt"].decode()),
+              "the world-2 Result.txt differs from the world-1 one")
+        for name in ("demod.txt", "iterCount.txt"):
+            check((out_c / name).read_bytes() == campaign["files"][name],
+                  f"the world-2 {name} differs from the world-1 one")
+        for name in CAMPAIGN_FILES[3:]:
+            check(td.dump_as_world1((out_c / name).read_text(), half)
+                  == campaign["files"][name].decode().splitlines(),
+                  f"the world-2 {name} does not map onto the world-1 dump")
+        devs = {ln.split()[3] for ln in (out_c / "errorindex.txt").read_text()
+                .splitlines()}
+        check(lead["dumped"] > 0 and other["dumped"] == 0 and devs == {"0", "1"},
+              f"rank 0 dumped {lead['dumped']} frames of devs {devs}")
+        check(all(lead["replay_launches"][k] > 0 for k in ("C", "D", "emit")),
+              f"the replay launched {lead['replay_launches']}")
+        check(lead["resume_calls"] == other["resume_calls"] == 0
+              and lead["resume_launches"]["F"] == 0,
+              "the world-2 rerun did not resume from rank 0's checkpoint")
+        print("  rank 0 alone wrote files; Result.txt (all but Time(s)), "
+              "demod.txt and iterCount.txt equal the world-1 campaign's; the "
+              f"dump's dev d frame f is its frame d * {half} + f (devs {sorted(devs)})")
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 23: the bench as a user runs it ------------------------------
+    t_phase = time.perf_counter()
+    for encode, phase_rate in (("fake", mbit_zero), ("random", mbit_codewords)):
+        p = subprocess.run([sys.executable, "-m", "faid_tpu_torch.bench",
+                            "--encode", encode], cwd=REPO, capture_output=True,
+                           text=True, timeout=WORLD_TIMEOUT_S)
+        check(p.returncode == 0, f"the bench --encode {encode} failed:\n"
+                                 f"{p.stderr[-3000:]}")
+        line = json.loads(p.stdout.strip().splitlines()[-1])
+        print(f"phase 23: python -m faid_tpu_torch.bench --encode {encode} "
+              f"({card}): {json.dumps(line)}\n  {p.stderr.strip()}")
+        check({"metric", "value", "unit", "vs_baseline", "encode",
+               "baseline_same_workload"} <= set(line)
+              and line["unit"] == "Mbit/s" and line["encode"] == encode
+              and line["metric"] != "decoded_info_throughput_faid_dtbf_qpsk_4dB",
+              "the bench's line lacks a key or has the TPU metric's name")
+        check(line["device"]["name"] == torch.cuda.get_device_name(0),
+              "the bench names another device")
+        ratio = line["value"] / phase_rate
+        print(f"  {line['value']} Mbit/s against the in-script rate "
+              f"{phase_rate:.1f} Mbit/s: {ratio:.4f}")
+        check(abs(ratio - 1) <= BENCH_TOLERANCE,
+              f"the bench's {encode} rate is not within "
+              f"{BENCH_TOLERANCE:.0%} of the in-script rate")
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     # --coverage-only: the build, its ptxas report and phase 21 alone
     coverage_only = sys.argv[1:] == ["--coverage-only"]
@@ -1455,6 +1659,9 @@ def main():
         sweep_s = time.perf_counter() - t0
         cli_counts = counts()
         check(rc == 0, f"the CLI returned {rc}")
+        campaign = {"argv": argv[:-2],
+                    "cfg": cli.config_from_args(cli.build_argparser().parse_args(argv)),
+                    "files": {n: (outdir / n).read_bytes() for n in CAMPAIGN_FILES}}
         print(f"CLI sweep 3.6-3.7 dB: {sweep_s:.3f} s wall, launches "
               f"{cli_counts}")
         check(all(cli_counts[k] > 0 for k in ("F", "C", "D", "emit"))
@@ -1472,6 +1679,7 @@ def main():
         c36 = res36["counters"]
         check(c36 == out, "the CLI's 3.6 dB counters differ from the main "
                           "path's for the same seed and stream rounds")
+        campaign["counters"] = [r["counters"] for r in ck["results"]]
         z = fer_z(c36["error_frames"], c36["test_frames"])
         check(abs(z) <= Z_LIMIT, f"CLI |z| = {abs(z):.2f} > {Z_LIMIT}")
         dumped = (outdir / "errorindex.txt").read_text().splitlines()
@@ -2073,6 +2281,7 @@ def main():
     cov = decoder_coverage(code, toy, dev, card, reset_counts, counts)
     err_b, err_d, err_e = (max(err_b, cov["B"]), max(err_d, cov["D"]),
                            max(err_e, cov["E"]))
+    sharded_path(code, cfg, card, campaign, mbit_s, mbit_r)
 
     def entry(name, key, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": source,

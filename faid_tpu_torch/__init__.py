@@ -36,11 +36,21 @@ Public API:
     build_debug_step                 the exact replay of one round's frames
     MonteCarloRunner                 the SNR sweep with checkpoint/resume,
                                      result tables and error-frame dumps
-                                     (command line: python -m faid_tpu_torch.cli)
+                                     (command line: python -m faid_tpu_torch.cli;
+                                     on N GPUs: torchrun --nproc-per-node N
+                                     -m faid_tpu_torch.cli --multihost)
+    make_mesh / build_sharded_sim_step / build_sharded_sim_loop
+                                     the round on every rank of a
+                                     torch.distributed world, the counters
+                                     summed over the ranks
+                                     (parallel/mesh.py)
+
+The throughput benchmark: python -m faid_tpu_torch.bench.
 """
 
 from .code.qc_matrix import QCCode, load_code
 from .config import BFConfig, DecodeMethod, DecoderConfig, FaidLutFamily, SimConfig
+from .parallel.mesh import build_sharded_sim_loop, build_sharded_sim_step, make_mesh
 from .sim.pipeline import build_debug_step, build_sim_loop, build_sim_step, sigma_for
 from .sim.runner import MonteCarloRunner
 
@@ -49,4 +59,5 @@ __all__ = [
     "BFConfig", "DecodeMethod", "DecoderConfig", "FaidLutFamily", "SimConfig",
     "build_debug_step", "build_sim_loop", "build_sim_step", "sigma_for",
     "MonteCarloRunner",
+    "build_sharded_sim_loop", "build_sharded_sim_step", "make_mesh",
 ]

@@ -1,10 +1,15 @@
 """Command-line entry point: the reference's ``main()`` (reference
-main.cpp:17-231) on one GPU, ``faid_tpu.cli`` for the PyTorch port.
+main.cpp:17-231), ``faid_tpu.cli`` for the PyTorch port.
 
     python -m faid_tpu_torch.cli --method 2 \\
         --channel-backend fused --stop-mode group --batch 2048 \\
         --snr-start 3.6 --snr-pass 0.1 --snr-end 3.8 --min-frames 16384 \\
         --collect-errors --out OUT
+
+On N GPUs of one host, one process a GPU, each drawing ``--batch``
+frames a round (parallel/mesh.py):
+
+    torchrun --nproc-per-node N -m faid_tpu_torch.cli --multihost ...
 
 Reads a Profile.txt (or flag overrides), sweeps SNR with the reference's
 stopping rule, prints a live progress row per step (main.cpp:212-213),
@@ -14,15 +19,19 @@ runs on ``cuda`` unless ``--device cpu`` is given, and fails when the
 device asked for is not there.  The flags are the JAX CLI's, with
 ``--device`` in place of ``--platform``, and the same defaults: the
 float channel chain (``--channel-backend xla``), QPSK, real codewords.
-``--multihost`` is not ported yet and raises NotImplementedError; a
-value outside the JAX package's configurations raises ValueError naming
-the flag to change.
+``--multihost`` joins the ``torch.distributed`` world that ``torchrun``
+describes in its environment (nccl on ``cuda``, each rank on
+``cuda:LOCAL_RANK``; gloo on ``--device cpu``), or exits within
+``--dist-timeout`` seconds when it cannot; rank 0 alone writes the files
+and prints.  A value outside the JAX package's configurations raises
+ValueError naming the flag to change.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from pathlib import Path
 
@@ -96,7 +105,15 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="torch device to run on (default cuda; cpu runs "
                          "the plain PyTorch twins of the kernels)")
     ap.add_argument("--multihost", action="store_true",
-                    help="span several GPUs (not ported yet)")
+                    help="join the torch.distributed world of torchrun's "
+                         "environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                         "MASTER_ADDR, MASTER_PORT): nccl on cuda, one GPU "
+                         "a rank (cuda:LOCAL_RANK), gloo on --device cpu; "
+                         "--batch frames a round on each rank, rank 0 "
+                         "writes the files")
+    ap.add_argument("--dist-timeout", type=float, default=300.0,
+                    help="seconds --multihost waits for the world to form, "
+                         "and for a collective, before it fails")
     ap.add_argument("--quiet", action="store_true")
     return ap
 
@@ -165,27 +182,86 @@ def _device(name: str):
     return dev
 
 
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT")
+
+
+def _join_world(device, timeout_s: float):
+    """Initializes the default process group from torchrun's environment:
+    nccl on ``cuda`` (this rank on ``cuda:LOCAL_RANK``), gloo on the CPU.
+    Returns the rank's device.  Exits when the environment is missing or
+    the world does not form within ``timeout_s`` seconds."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    missing = [k for k in _TORCHRUN_ENV if k not in os.environ]
+    if missing:
+        raise SystemExit(
+            f"faid_tpu_torch: --multihost reads torchrun's environment and "
+            f"{', '.join(missing)} is not set: start the ranks with "
+            "torchrun --nproc-per-node N -m faid_tpu_torch.cli --multihost")
+    backend = "gloo"
+    if device.type == "cuda":
+        device = _device(f"cuda:{os.environ['LOCAL_RANK']}")
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    try:
+        dist.init_process_group(
+            backend, init_method="env://",
+            timeout=datetime.timedelta(seconds=timeout_s))
+    except RuntimeError as e:       # torch's DistError family
+        raise SystemExit(
+            f"faid_tpu_torch: --multihost: rank {os.environ['RANK']} of "
+            f"{os.environ['WORLD_SIZE']} could not join the {backend} world "
+            f"at {os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']} "
+            f"within {timeout_s:g} s: {e}")
+    if backend == "nccl" and dist.get_world_size() > 1:
+        # one build of the kernels a host, not one a rank
+        from .utils import kernels
+
+        if os.environ["LOCAL_RANK"] == "0":
+            kernels.library()
+        dist.barrier()
+    return device
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet: the port runs on one device")
     device = _device(args.device)
 
+    from .parallel.mesh import Mesh, make_mesh
+
+    if not args.multihost:
+        return _run(args, cfg, Mesh(0, 1, device))
+    device = _join_world(device, args.dist_timeout)
+    import torch.distributed as dist
+
+    try:
+        return _run(args, cfg, make_mesh(device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, cfg, mesh) -> int:
     import torch
 
     from .sim.runner import MonteCarloRunner
 
+    device = mesh.device
+    lead = mesh.rank == 0
     out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    runner = MonteCarloRunner(cfg, device=device,
+    if lead:
+        out.mkdir(parents=True, exist_ok=True)
+    runner = MonteCarloRunner(cfg, mesh=mesh,
                               checkpoint_path=out / "checkpoint.json",
                               max_rounds_per_snr=args.max_rounds,
                               temp_txt_path=out / "Temp.txt")
 
     def progress(snr_db, c):
-        if args.quiet:
+        if args.quiet or not lead:
             return
         tf = max(c["test_frames"], 1)
         sys.stdout.write(
@@ -204,10 +280,13 @@ def main(argv=None) -> int:
             runner.run_point(progress=progress)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-        trace = Path(args.trace_dir)
-        trace.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(trace / "trace.json"))
+        if lead:
+            trace = Path(args.trace_dir)
+            trace.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(trace / "trace.json"))
     runner.run(progress=progress)
+    if not lead:
+        return 0
     if not args.quiet:
         sys.stdout.write("\n")
 

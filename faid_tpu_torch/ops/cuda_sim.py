@@ -138,12 +138,13 @@ def _check_cw(cfg, cw):
         raise ValueError("cw is None exactly when cfg.fake_encode is set")
 
 
-def build_fused_sim(code: QCCode, cfg, device="cuda"):
+def build_fused_sim(code: QCCode, cfg, device="cuda", frame0: int = 0):
     """Returns sim(cw [batch, n_var] int8 | None, seed, rnd, sigma) ->
     dict(err_bits, mp_iters, bf_rounds, mod_error_bits,
-    mod_error_symbols), each [batch] int32 on ``device``: stream round
-    ``rnd`` of stream ``seed`` through kernel F (its twin on the CPU).
-    ``cw`` is None exactly when ``cfg.fake_encode`` is set."""
+    mod_error_symbols), each [batch] int32 on ``device``: frames ``frame0
+    ..`` of stream round ``rnd`` of stream ``seed`` through kernel F (its
+    twin on the CPU).  ``cw`` is None exactly when ``cfg.fake_encode`` is
+    set."""
     if not supports_sim(code, cfg):
         raise ValueError("config not supported by the fused sim kernel")
     tables = cd.decoder_tables(code, cfg.decoder(), device)
@@ -153,12 +154,12 @@ def build_fused_sim(code: QCCode, cfg, device="cuda"):
         _check_cw(cfg, cw)
         return fused_sim(thresholds(sigma), tables, seed=seed, rnd=rnd,
                          batch=cfg.batch_per_device, mod_type=cfg.mod_type,
-                         quant_bits=cfg.quant_bits, cw=cw)
+                         quant_bits=cfg.quant_bits, frame0=frame0, cw=cw)
 
     return sim
 
 
-def build_fused_sim_emit(code: QCCode, cfg, device="cuda"):
+def build_fused_sim_emit(code: QCCode, cfg, device="cuda", frame0: int = 0):
     """Returns emit(cw | None, seed, rnd, sigma) -> (llr, mod_err), each
     [batch, n_var] int8: the channel of ``build_fused_sim``'s round, the
     LLRs before the decoder's ingest."""
@@ -170,6 +171,7 @@ def build_fused_sim_emit(code: QCCode, cfg, device="cuda"):
         _check_cw(cfg, cw)
         return fused_sim_emit(thresholds(sigma), seed=seed, rnd=rnd,
                               batch=cfg.batch_per_device, n_var=code.n_var,
-                              quant_bits=cfg.quant_bits, cw=cw)
+                              quant_bits=cfg.quant_bits, frame0=frame0,
+                              cw=cw)
 
     return emit

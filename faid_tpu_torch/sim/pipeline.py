@@ -38,6 +38,11 @@ stream (``philox.message_bits``) and go through the encoder
 sweep's frames bit for bit (the float chain's on the device type that
 ran the sweep: its erfinv is the device's).
 
+Every ``build_*`` function here takes ``frame0``, the round's first
+global frame: its rounds draw frames ``frame0 .. frame0 + batch - 1``.
+Rank r of a sharded run (parallel/mesh.py) passes ``r * batch``, so W
+ranks at batch b draw the frames of one rank at batch W * b.
+
 Counters per round (the reference's CalculateErrors and ModCalErr):
   error_bits       decoded info-bit errors
   error_frames     frames with >= 1 info-bit error
@@ -78,8 +83,7 @@ def check_ported(cfg: SimConfig, device) -> None:
     """Raise, naming the CLI flag to change, for a round the port cannot
     run on ``device``: ValueError for a configuration outside the JAX
     package's too, and for the plain backend on a CUDA device, where a
-    round runs the kernels only.  (``--multihost`` raises
-    NotImplementedError where the CLI is built.)"""
+    round runs the kernels only."""
     check_backend(cfg.backend)
     if torch.device(device).type == "cuda" and cfg.backend != "auto":
         raise ValueError(
@@ -137,28 +141,29 @@ def _fuses(code: QCCode, cfg: SimConfig) -> bool:
             and supports_sim(code, cfg))
 
 
-def _codewords(code: QCCode, cfg: SimConfig, device):
+def _codewords(code: QCCode, cfg: SimConfig, device, frame0: int):
     """None for the all-zero word (``fake_encode``); else codewords(seed,
-    rnd) -> [batch, n_var] int8: the round's message bits from the stream,
-    encoded, on ``device``."""
+    rnd) -> [batch, n_var] int8: the message bits of frames ``frame0 ..``
+    of the round from the stream, encoded, on ``device``."""
     if cfg.fake_encode:
         return None
     encode = make_encode_fn(code, device)
 
     def codewords(seed: int, rnd: int) -> torch.Tensor:
-        return encode(philox.message_bits(seed, rnd, 0, cfg.batch_per_device,
-                                          code.n_info, device))
+        return encode(philox.message_bits(seed, rnd, frame0,
+                                          cfg.batch_per_device, code.n_info,
+                                          device))
 
     return codewords
 
 
-def _map_channel(code: QCCode, cfg: SimConfig, device,
-                 quantile: bool) -> Callable:
+def _map_channel(code: QCCode, cfg: SimConfig, device, quantile: bool,
+                 frame0: int) -> Callable:
     """-> channel(cw, seed, rnd, sigma) -> (llr, mod_err, soft): the LLRs
-    and the ModCalErr map [batch, n_var] int8 of the round's channel
-    (``quantile``: ``_quantile(cfg)``), and its float LLRs [batch, n_var]
-    float32 where the channel has them (the float chain), else None.
-    ``cw`` None is the all-zero word.
+    and the ModCalErr map [batch, n_var] int8 of frames ``frame0 ..`` of
+    the round's channel (``quantile``: ``_quantile(cfg)``), and its float
+    LLRs [batch, n_var] float32 where the channel has them (the float
+    chain), else None.  ``cw`` None is the all-zero word.
 
       quantile, BPSK/QPSK   kernel C (ops/cuda_channel.py)
       quantile, 16-256-QAM  kernel G (ops/cuda_channel.py)
@@ -172,12 +177,14 @@ def _map_channel(code: QCCode, cfg: SimConfig, device,
             if mod in (1, 2):
                 llr, err = quantile_channel_map(
                     thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
-                    n_var=n_var, quant_bits=cfg.quant_bits, cw=cw)
+                    n_var=n_var, quant_bits=cfg.quant_bits, frame0=frame0,
+                    cw=cw)
             else:
                 llr, err = quantile_channel_qam(
                     thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
                     n_var=n_var, mod_type=mod, depth=cfg.interleave_depth,
-                    quant_bits=cfg.quant_bits, scale=cfg.scale, cw=cw)
+                    quant_bits=cfg.quant_bits, scale=cfg.scale,
+                    frame0=frame0, cw=cw)
             return llr, err, None
 
         return quantile
@@ -185,7 +192,7 @@ def _map_channel(code: QCCode, cfg: SimConfig, device,
     samples = noise_samples(n_var, mod)
 
     def float_chain(cw, seed: int, rnd: int, sigma: float):
-        noise = philox.normal_noise(seed, rnd, 0, batch, samples, device)
+        noise = philox.normal_noise(seed, rnd, frame0, batch, samples, device)
         llr, soft, err = float_channel(zero if cw is None else cw, noise,
                                        sigma, cfg)
         return llr, err, soft
@@ -193,16 +200,24 @@ def _map_channel(code: QCCode, cfg: SimConfig, device,
     return float_chain
 
 
-def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool):
-    """-> round(seed, rnd, sigma) -> counters on ``device``."""
+def _check_frames(cfg: SimConfig, frame0: int) -> None:
+    """The round's frames must be global frame indices of the stream."""
+    philox.check_stream_args(0, 0, frame0, cfg.batch_per_device)
+
+
+def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool,
+                 frame0: int):
+    """-> round(seed, rnd, sigma) -> counters on ``device`` for frames
+    ``frame0 ..`` of each round."""
     check_ported(cfg, device)
     _check_shape(code, cfg)
+    _check_frames(cfg, frame0)
     dcfg = cfg.decoder()
     batch = cfg.batch_per_device
-    codewords = _codewords(code, cfg, device)
+    codewords = _codewords(code, cfg, device, frame0)
     bf_cap = max(dcfg.bf.max_iter, 1)
     if fuse and _fuses(code, cfg):
-        sim = build_fused_sim(code, cfg, device)
+        sim = build_fused_sim(code, cfg, device, frame0)
     else:
         decoder = build_stats_decoder(code, dcfg, device)
         quantile = _quantile(cfg)
@@ -213,9 +228,10 @@ def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool):
                 return quantile_channel(
                     thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
                     n_var=code.n_var, n_info=code.n_info,
-                    mod_type=cfg.mod_type, quant_bits=cfg.quant_bits, cw=cw)
+                    mod_type=cfg.mod_type, quant_bits=cfg.quant_bits,
+                    frame0=frame0, cw=cw)
         else:
-            map_channel = _map_channel(code, cfg, device, quantile)
+            map_channel = _map_channel(code, cfg, device, quantile, frame0)
 
             def channel(cw, seed: int, rnd: int, sigma: float):
                 llr, err, _ = map_channel(cw, seed, rnd, sigma)
@@ -253,22 +269,24 @@ def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool):
 
 
 def build_sim_step(code: QCCode, cfg: SimConfig, device="cuda",
-                   fuse: bool = True) -> Callable:
+                   fuse: bool = True, frame0: int = 0) -> Callable:
     """Returns step(seed, rnd, sigma) -> dict of int32 counters on
-    ``device`` for stream round ``rnd`` of stream ``seed``.  ``fuse=False``
-    composes kernels A and B even where kernel F covers the round (the
-    same counters; for comparing the two)."""
-    return _build_round(code, cfg, device, fuse)
+    ``device`` for frames ``frame0 .. frame0 + batch - 1`` of stream round
+    ``rnd`` of stream ``seed``.  ``fuse=False`` composes kernels A and B
+    even where kernel F covers the round (the same counters; for
+    comparing the two)."""
+    return _build_round(code, cfg, device, fuse, frame0)
 
 
 def build_sim_loop(code: QCCode, cfg: SimConfig, rounds: int,
-                   device="cuda", fuse: bool = True) -> Callable:
+                   device="cuda", fuse: bool = True,
+                   frame0: int = 0) -> Callable:
     """Returns loop(seed, sigma, round0) -> counters summed ON the device
     over stream rounds ``round0 .. round0 + rounds - 1``; identical to
     summing ``build_sim_step``'s counters for those rounds."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
-    run_round = _build_round(code, cfg, device, fuse)
+    run_round = _build_round(code, cfg, device, fuse, frame0)
 
     def loop(seed: int, sigma: float, round0: int) -> dict:
         acc = None
@@ -281,7 +299,8 @@ def build_sim_loop(code: QCCode, cfg: SimConfig, rounds: int,
     return loop
 
 
-def build_debug_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
+def build_debug_step(code: QCCode, cfg: SimConfig, device="cuda",
+                     frame0: int = 0) -> Callable:
     """Forensic replay step: the datapath of ``build_sim_step``, returning
     per-frame arrays instead of counters.  Every message bit and channel
     word is a pure function of (seed, rnd, frame), so any Monte-Carlo
@@ -293,20 +312,21 @@ def build_debug_step(code: QCCode, cfg: SimConfig, device="cuda") -> Callable:
     ``soft`` is the float LLR (the reference's errorfloat.txt); no float
     LLR exists in the quantile channel, so there it is the dequantized
     ``llr / scale``, as the JAX package's fused-channel replay gives it.
-    For the same (seed, rnd, sigma), ``err_bits`` sums to ``build_sim_step``'s
-    error_bits and counts its error_frames."""
+    For the same (seed, rnd, sigma, frame0), ``err_bits`` sums to
+    ``build_sim_step``'s error_bits and counts its error_frames."""
     check_ported(cfg, device)
     _check_shape(code, cfg)
+    _check_frames(cfg, frame0)
     decoder = build_decoder(code, cfg.decoder())
-    codewords = _codewords(code, cfg, device)
+    codewords = _codewords(code, cfg, device, frame0)
     if _fuses(code, cfg):
         # the fused round's own replay twin (the same channel, kernel C)
-        emit = build_fused_sim_emit(code, cfg, device)
+        emit = build_fused_sim_emit(code, cfg, device, frame0)
 
         def channel(cw, seed: int, rnd: int, sigma: float):
             return (*emit(cw, seed, rnd, sigma), None)
     else:
-        channel = _map_channel(code, cfg, device, _quantile(cfg))
+        channel = _map_channel(code, cfg, device, _quantile(cfg), frame0)
     # A 0-dim tensor on the device, not a Python float: CUDA divides by a
     # host scalar as a multiply by its float32 reciprocal, which is not
     # always the quotient the JAX package's division gives.

@@ -1,12 +1,21 @@
 """Monte-Carlo SNR-sweep runner: the reference's ``main()`` loop
-(reference main.cpp:17-231), ``faid_tpu.sim.runner`` on one device.
+(reference main.cpp:17-231), ``faid_tpu.sim.runner``.
 
-Per SNR point it repeats ``build_sim_loop`` calls until the reference's
-stopping rule holds (>= min_frames AND >= min_frame_errors, reference
-main.cpp:164, 209-211), then emits one result row.  Rows match the
-``Result.txt`` schema (main.cpp:117-119, 220-223) plus the ``demod.txt``
-columns (main.cpp:224-226).  File formats and semantics are the JAX
-runner's.
+Per SNR point it repeats ``build_sharded_sim_loop`` calls
+(parallel/mesh.py; ``build_sim_loop`` in a world of one) until the
+reference's stopping rule holds (>= min_frames AND >= min_frame_errors,
+reference main.cpp:164, 209-211), then emits one result row.  Rows match
+the ``Result.txt`` schema (main.cpp:117-119, 220-223) plus the
+``demod.txt`` columns (main.cpp:224-226).  File formats and semantics are
+the JAX runner's.
+
+In a world of several ranks every rank runs the sweep on its slice of
+each round's frames and takes the same stop decisions from the reduced
+counters.  Unlike the JAX runner, where every host writes the same
+files, rank 0 alone writes ``checkpoint.json``, ``Temp.txt``, the result
+tables and the error dumps, and rank 0 alone reads the checkpoint, whose
+state it sends to the other ranks: no filesystem is assumed to be
+shared.  Rank 0's dump replays every rank's slice.
 
 Checkpoint/resume: state is a JSON snapshot of ``(seed, per-SNR
 counters, round index)``; resume is exact because round ``rnd`` of SNR
@@ -32,11 +41,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..code.qc_matrix import QCCode, load_code
 from ..config import SimConfig
 from ..ops import philox
-from .pipeline import build_debug_step, build_sim_loop, quantile_draws
+from ..parallel.mesh import Mesh, build_sharded_sim_loop, make_mesh
+from .pipeline import build_debug_step, quantile_draws
 
 COUNTER_KEYS = (
     "test_frames", "error_bits", "error_frames", "lt3_frames",
@@ -166,29 +177,41 @@ def snr_points(cfg: SimConfig) -> list[float]:
 
 
 class MonteCarloRunner:
-    """Drives ``build_sim_loop`` over an SNR sweep on one device, with
-    checkpointing."""
+    """Drives the sharded sim loop over an SNR sweep with checkpointing.
 
-    world_size = 1      # one device; multi-GPU runs are not ported yet
+    ``mesh`` (parallel/mesh.py ``make_mesh``) is the world the sweep runs
+    in, a world of one on ``device`` (default ``cuda``) when None; a mesh
+    brings its own device.  Every rank constructs the runner and calls
+    the same methods; the writers and ``collect_error_frames`` do their
+    work on rank 0 alone."""
 
     def __init__(self, cfg: SimConfig, code: QCCode | None = None,
-                 device="cuda", checkpoint_path: str | Path | None = None,
+                 device=None, mesh: Mesh | None = None,
+                 checkpoint_path: str | Path | None = None,
                  max_rounds_per_snr: int = 100000,
                  temp_txt_path: str | Path | None = None):
+        if mesh is None:
+            mesh = make_mesh(device)
+        elif device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
         self.cfg = cfg
+        self.mesh = mesh
+        self.world_size = mesh.size
+        self._lead = mesh.rank == 0
         self.temp_txt_path = Path(temp_txt_path) if temp_txt_path else None
         self.code = code if code is not None else load_code(cfg.file_name_key())
-        self.device = device
-        self._device_type = torch.device(device).type
+        self.device = mesh.device
+        self._device_type = mesh.device.type
         self.rounds_per_sync = max(1, cfg.rounds_per_sync)
-        self.loop = build_sim_loop(self.code, cfg, self.rounds_per_sync, device)
+        self.loop = build_sharded_sim_loop(self.code, cfg, mesh,
+                                           self.rounds_per_sync)
         self.checkpoint_path = Path(checkpoint_path) if checkpoint_path else None
         self.max_rounds_per_snr = max_rounds_per_snr
         self.results: list[SnrResult] = []
         self._state = {"snr_idx": 0, "round": 0,
                        "counters": self._zero_counters(),
                        "err_chunks": []}
-        if self.checkpoint_path and self.checkpoint_path.exists():
+        if self.checkpoint_path:
             self._load_checkpoint()
 
     def _zero_counters(self) -> dict:
@@ -200,17 +223,26 @@ class MonteCarloRunner:
 
     # -- checkpointing ------------------------------------------------------
     def _load_checkpoint(self):
-        st = json.loads(self.checkpoint_path.read_text())
-        if st.get("seed") != self.cfg.seed:
-            return  # different experiment; start fresh
+        """Rank 0 reads the checkpoint, if there is one, and every rank
+        takes its state from rank 0."""
+        st = None
+        if self._lead and self.checkpoint_path.exists():
+            st = json.loads(self.checkpoint_path.read_text())
+        if self.world_size > 1:
+            box = [st]
+            dist.broadcast_object_list(box, src=0)
+            st = box[0]
+        if st is None or st.get("seed") != self.cfg.seed:
+            return  # no checkpoint, or a different experiment; start fresh
         fp = config_fingerprint(self.cfg, self.world_size, self._device_type)
         if st.get("config_fingerprint") != fp:
-            warnings.warn(
-                "checkpoint was written by a different simulation config, "
-                "world size, random stream or float-chain device type "
-                f"(fingerprint {st.get('config_fingerprint')} != {fp}); "
-                "starting fresh",
-                stacklevel=2)
+            if self._lead:
+                warnings.warn(
+                    "checkpoint was written by a different simulation "
+                    "config, world size, random stream or float-chain "
+                    f"device type (fingerprint {st.get('config_fingerprint')} "
+                    f"!= {fp}); starting fresh",
+                    stacklevel=3)
             return
         self._state = st["state"]
         self._state.setdefault("err_chunks", [])
@@ -219,7 +251,7 @@ class MonteCarloRunner:
                         for r in st["results"]]
 
     def _save_checkpoint(self):
-        if not self.checkpoint_path:
+        if not (self.checkpoint_path and self._lead):
             return
         st = {"seed": self.cfg.seed,
               "config_fingerprint": config_fingerprint(
@@ -241,7 +273,7 @@ class MonteCarloRunner:
         FER/BER floor; the seed C-array is replaced by the exact resume
         state (the stream is counter-based, checkpoint.json restores the
         point bit-exactly)."""
-        if not self.temp_txt_path:
+        if not (self.temp_txt_path and self._lead):
             return
         n_info = self.code.n_info
         tf = max(c["test_frames"], 1)
@@ -358,6 +390,8 @@ class MonteCarloRunner:
 
     def write_result_txt(self, path: str | Path):
         """Result.txt-compatible table (reference main.cpp:117-119)."""
+        if not self._lead:
+            return
         rows = self.report_rows()
         hdr = (f"{'SNR':>6} {'TestFrame':>10} {'ErrorFrame':>10} "
                f"{'ErrorBits':>10} {'FER':>12} {'BER':>12} "
@@ -384,6 +418,8 @@ class MonteCarloRunner:
         batch % 32 == 0 every frame of a word shares one BF loop, so the
         word count is exactly the frame count / 32 and the output is
         byte-exact.  Under stop_mode='frame' counts stay per frame."""
+        if not self._lead:
+            return
         lines = []
         bf_cap = self.cfg.decoder().bf.max_iter
         word_exact = (self.cfg.stop_mode == "group"
@@ -414,55 +450,64 @@ class MonteCarloRunner:
         of (seed, snr_idx, round, frame); on a CUDA device the replay runs
         the round's channel (kernel C or G, or the float chain), then
         kernel D (a BF tail) or E (none).  The errors are the decoded info bits
-        that differ from the frame's codeword.  Returns the number of
-        frames dumped."""
+        that differ from the frame's codeword.  Rank 0 replays every
+        rank's slice of a round, rank d's as ``dev d`` with its frames
+        numbered from 0 (the JAX dump's format: frame f of ``dev d`` is
+        the round's frame d * batch + f); another rank dumps nothing.
+        Returns the number of frames dumped."""
+        if not self._lead:
+            return 0
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
-        debug = build_debug_step(self.code, self.cfg, self.device)
+        b = self.cfg.batch_per_device
+        debugs = [build_debug_step(self.code, self.cfg, self.device, d * b)
+                  for d in range(self.world_size)]
         z = self.code.z
         n_info = self.code.n_info
+
+        def replays():
+            """(snr_db, d, rnd, rank d's replayed slice) of every round
+            with errors."""
+            for snr_idx, res in enumerate(self.results):
+                sigma = self.cfg.sigma_at(res.snr_db)
+                for r0, r1 in res.err_chunks:
+                    for rnd in range(r0, r1):
+                        sr = philox.stream_round(snr_idx, rnd)
+                        for d, debug in enumerate(debugs):
+                            yield (res.snr_db, d, rnd,
+                                   debug(self.cfg.seed, sr, sigma))
+
         dumped = 0
         names = ("errorindex.txt", "errordecode.txt", "errorllr.txt",
                  "errorfloat.txt")
         files = [open(out_dir / n, "w") for n in names]
         f_idx, f_dec, f_llr, f_flt = files
         try:
-            for snr_idx, res in enumerate(self.results):
-                if not res.err_chunks:
+            for snr_db, d, rnd, out in replays():
+                err_bits = out["err_bits"].cpu().numpy()
+                bad = np.nonzero(err_bits)[0]
+                if bad.size == 0:
                     continue
-                sigma = self.cfg.sigma_at(res.snr_db)
-                for r0, r1 in res.err_chunks:
-                    for rnd in range(r0, r1):
-                        out = debug(self.cfg.seed,
-                                    philox.stream_round(snr_idx, rnd), sigma)
-                        err_bits = out["err_bits"].cpu().numpy()
-                        bad = np.nonzero(err_bits)[0]
-                        if bad.size == 0:
-                            continue
-                        hard = out["hard"].cpu().numpy()
-                        cw = out["cw"].cpu().numpy()
-                        llr = out["llr"].cpu().numpy()
-                        soft = out["soft"].cpu().numpy()
-                        for f in bad:
-                            pos = np.nonzero(
-                                hard[f, :n_info]
-                                != cw[f, :n_info].astype(bool))[0]
-                            # one device: dev 0 (the JAX dump's format)
-                            tag = (f"snr {res.snr_db:.2f} dev 0 "
-                                   f"round {rnd} frame {int(f)} "
-                                   f"errs {int(err_bits[f])}")
-                            f_idx.write(tag + " : " + " ".join(
-                                f"b{p // z + 1}+{p % z}" for p in pos) + "\n")
-                            f_dec.write(tag + " : " + " ".join(
-                                str(int(hard[f, p])) for p in pos) + "\n")
-                            f_llr.write(tag + " : " + " ".join(
-                                str(int(llr[f, p])) for p in pos) + "\n")
-                            f_flt.write(tag + " : " + " ".join(
-                                f"{float(soft[f, p]):.6f}" for p in pos)
-                                + "\n")
-                            dumped += 1
-                            if dumped >= max_frames:
-                                return dumped
+                hard = out["hard"].cpu().numpy()
+                cw = out["cw"].cpu().numpy()
+                llr = out["llr"].cpu().numpy()
+                soft = out["soft"].cpu().numpy()
+                for f in bad:
+                    pos = np.nonzero(
+                        hard[f, :n_info] != cw[f, :n_info].astype(bool))[0]
+                    tag = (f"snr {snr_db:.2f} dev {d} round {rnd} "
+                           f"frame {int(f)} errs {int(err_bits[f])}")
+                    f_idx.write(tag + " : " + " ".join(
+                        f"b{p // z + 1}+{p % z}" for p in pos) + "\n")
+                    f_dec.write(tag + " : " + " ".join(
+                        str(int(hard[f, p])) for p in pos) + "\n")
+                    f_llr.write(tag + " : " + " ".join(
+                        str(int(llr[f, p])) for p in pos) + "\n")
+                    f_flt.write(tag + " : " + " ".join(
+                        f"{float(soft[f, p]):.6f}" for p in pos) + "\n")
+                    dumped += 1
+                    if dumped >= max_frames:
+                        return dumped
         finally:
             for f in files:
                 f.close()
@@ -470,6 +515,8 @@ class MonteCarloRunner:
 
     def write_demod_txt(self, path: str | Path):
         """demod.txt-compatible table (reference main.cpp:224-226)."""
+        if not self._lead:
+            return
         rows = self.report_rows()
         lines = [f"{'SNR':>6} {'ModFER':>12} {'ModBER':>12} {'ModSER':>12}\n"]
         for r in rows:

@@ -6,6 +6,7 @@ xla backend on the full code."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import jax
@@ -142,20 +143,26 @@ def test_run_dtbf(rng, group):
         bf.group_any(torch.zeros(33, dtype=torch.bool))
 
 
+@functools.cache
+def _pallas_stats(stop_mode):
+    """make_stats_decoder(interpret=True) on the toy code, jitted once per
+    stop mode: the cases of both LLR ranges share its compile."""
+    return jax.jit(jbuild_stats(jtoy_code(), _cfgs(stop_mode)[0],
+                                backend="pallas", interpret=True))
+
+
 @pytest.mark.parametrize("stop_mode", ["group", "frame"])
 @pytest.mark.parametrize("llr_range", [7, 127])
 def test_stats_decoder_toy_vs_pallas_interpret(rng, stop_mode, llr_range):
     """The port's stats decoder on CPU (kernel B's plain twin) against
     make_stats_decoder(interpret=True): toy code, batch 64, two 32-frame
     words with different exits, DTBF engaged."""
-    jcode = jtoy_code()
-    code = _port_code(jcode)
-    jdcfg, dcfg = _cfgs(stop_mode)
+    code = _port_code(jtoy_code())
+    _, dcfg = _cfgs(stop_mode)
     llr = rng.integers(-llr_range, llr_range + 1,
                        (64, code.n_var)).astype(np.int8)
     llr[:32] = np.minimum(llr[:32], -1)
-    want = _np(jax.jit(jbuild_stats(jcode, jdcfg, backend="pallas",
-                                    interpret=True))(jnp.asarray(llr)))
+    want = _np(_pallas_stats(stop_mode)(jnp.asarray(llr)))
     got = build_stats_decoder(code, dcfg, "cpu")(torch.from_numpy(llr))
     for k in ("err_bits", "mp_iters", "bf_rounds"):
         assert got[k].dtype == torch.int32

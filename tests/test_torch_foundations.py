@@ -118,8 +118,9 @@ def test_sat8_and_limits():
 
 
 def test_port_imports_no_jax():
-    """The port runs where there is no JAX: importing every module of it
-    must load neither jax nor faid_tpu."""
+    """The port runs where there is no JAX: importing every module of it,
+    and the multi-process checks' rank module, must load neither jax nor
+    faid_tpu."""
     mods = ["faid_tpu_torch", "faid_tpu_torch.convert",
             "faid_tpu_torch.code.toy", "faid_tpu_torch.decoders.core",
             "faid_tpu_torch.decoders.bf", "faid_tpu_torch.ops.cn_update",
@@ -129,8 +130,12 @@ def test_port_imports_no_jax():
             "faid_tpu_torch.ops.qam_plan",
             "faid_tpu_torch.sim.pipeline", "faid_tpu_torch.sim.runner",
             "faid_tpu_torch.cli", "faid_tpu_torch.utils.kernels",
-            "faid_tpu_torch.utils.profile"]
+            "faid_tpu_torch.utils.profile", "faid_tpu_torch.parallel.mesh",
+            "faid_tpu_torch.bench",
+            # the ranks of the multi-process checks (tests and chip_smoke.py)
+            "_torch_dist"]
     prog = ("import importlib, sys\n"
+            "sys.path.insert(0, 'tests')\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'faid_tpu')]\n"

@@ -326,7 +326,10 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as e:
         cli.main([*CLI_ARGS, "--device", "cuda", "--out", out])
     assert e.value.code not in (0, None)
-    with pytest.raises(NotImplementedError, match="--multihost"):
+    # --multihost outside torchrun's environment names what is missing
+    for k in cli._TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="--multihost.*RANK"):
         cli.main([*CLI_ARGS, "--device", "cpu", "--multihost", "--out", out])
     # the default float chain and 16-QAM run (tests/test_torch_qam.py);
     # an interleaver that does not divide the code's length does not
