@@ -81,10 +81,10 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
      INT_MIN), 16/64/256-QAM x depth 1-3 x codewords and the zero word, on
      both codes, each printing how many rails sit on a threshold (the
      phase fails if none);
- 18. kernel G's law: 30 launches of 16-QAM at 8.1 dB (depth 1, 4-bit,
-     scale 13, all-zero word), each level's LLR histogram against the
-     analytic probabilities of docs/channel_parity.json's 16qam row,
-     every bin |z| <= 5;
+ 18. kernel G's law: channel_parity's histogram row (faid_tpu_torch/
+     scripts/channel_parity.py ``hist_row``), 30 launches of 16-QAM at 8.1
+     dB (depth 1, 4-bit, scale 13, all-zero word), each level's LLR
+     histogram against the float64 erfc law, every bin |z| <= 5;
  19. the float chain (channel_backend xla) on the card: one CPU noise
      tensor through it on cuda and on cpu, bit for bit (mod 1/2/4/6/8 x
      1/4/6-bit x depth 1-3); build_sim_loop FER z-tests against the xla
@@ -131,7 +131,22 @@ chain's parts, and of the QAM rounds on both channels, and G's bound;
  23. the bench as a user runs it, `python -m faid_tpu_torch.bench
      --encode fake` and `--encode random`: the line's keys, its rate
      within 10% of phase 5's (all-zero word) and phase 15's (codewords)
-     in the same call.
+     in the same call;
+ 24. the port's scripts (faid_tpu_torch/scripts/), each ``main(argv)`` in
+     this process at full width, writing to a temporary directory: (a)
+     fer_validation's six 3.6 dB rows in group mode, each held to its TPU
+     row (docs/validation_group.json) and run on kernel F; (b)
+     channel_parity's QPSK 4.0 dB histogram, 30 launches of kernel C at
+     batch 2048 (~1.1e9 draws) against the float64 erfc law; (c)
+     floor_campaign, FAID_DTBF at 3.9 dB, run to half of a 1,024,000-frame
+     budget and rerun to the whole, equal counter for counter to one run
+     of the whole, and held to docs/floor_group.json; (d) roofline at
+     batch 2048, every stage present with its share <= 1.05; (e)
+     backend_parity at batch 128, two words: the six methods' kernels D
+     and E equal to their plain twin.
+The bounds, timers and profiles are faid_tpu_torch/scripts/roofline.py's
+(its op model), the z tests and the readers of the JAX package's
+artifacts faid_tpu_torch/scripts/_common.py's.
 Any failed phase exits non-zero before the last line, which is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports torch and numpy, never JAX.
@@ -141,7 +156,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import re
 import subprocess
 import sys
@@ -151,69 +165,25 @@ from pathlib import Path
 
 import torch
 
+try:
+    from faid_tpu_torch.scripts import _common, channel_parity
+    from faid_tpu_torch.scripts._common import (METHOD_NAMES, fer_z, reference_fer,
+                                                two_prop_z)
+    from faid_tpu_torch.scripts.roofline import (PEAK_BYTES_PER_S, PEAK_INT8_OPS_PER_S,
+                                                 PHILOX_KEY_OPS, NOISE_INT_OPS, bound,
+                                                 channel_ops, cuda_ms, decoder_ops,
+                                                 device_profile, in_turns,
+                                                 kernel_device_ms, qam_least_ops,
+                                                 qam_rail_ops, qam_walk_ops)
+except ImportError as e:
+    print(f"FAIL: the faid_tpu_torch package is not importable here: {e}", flush=True)
+    sys.exit(1)
+
 REPO = Path(__file__).resolve().parent
 BATCH = 2048
 SEED = 20261016
 FER_ROUNDS = 8
 Z_LIMIT = 4.0
-
-# The H100 SXM's peaks (NVIDIA's data sheet, at the 700 W limit): HBM
-# bytes per second, and int32 operations per second: 64 INT32 lanes per
-# SM (Hopper white paper) x 132 SMs x the 1.98 GHz boost clock that the
-# published 67 TFLOP/s float32 rate (128 lanes, 2 per FMA) implies.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
-
-# Operation model of the functions' arithmetic, in int32 operations; it
-# counts what the function needs, not what a kernel spends on addressing:
-#   Philox4x32-10, per call: 10 rounds of 2 mul-hi, 2 mul-lo, 4 xor = 80,
-#     shared by the 4 bits the call feeds; its 9 x 2 key-schedule adds
-#     depend on the seed alone, so they count once per launch;
-#   staircase, per bit: the mask xor, 2L compares and 2L adds, the sign
-#     restore (xor, sub), the clip (min, max), the error compare = 4L + 6;
-#   row update, per edge and MP iteration (ops/cn_update.py), FAID: pass
-#     1 subtract, the clip to +-31 (max, min), sign with backtrack
-#     (select, compare), parity xor, magnitude (abs, min, table) and the
-#     min1/min2 update (max, min, min) = 1 + 2 + 2 + 1 + 3 + 3 = 12 (en is
-#     within +-31 and a message within +-7, so the int8 saturation of
-#     en - msg never binds and is not counted); pass 2 compare with min1
-#     and select, 2 sign xors, negate, add, clip (max, min) = 8;
-#     NMS: pass 1 subtract, the lower clip (max), sign compare, parity
-#     xor, abs, min1/min2 (3) = 8; pass 2 as FAID's plus the abs of the
-#     raw compare = 9; selective and simple-offset OMS: NMS's plus the
-#     clip of |v| to 7 in pass 1 = 9 + 9;
-#   row update, per check and MP iteration: the two message magnitudes,
-#     FAID and simple-offset OMS (subtract, min) x 2 = 4; EF 1 and EF 2
-#     add the floor gate (2 ands) and the swap of the LUT row (select) =
-#     7; NMS (multiply, shift, min) x 2 = 6 (the int8 saturation cannot
-#     bind); selective OMS the gate (2 ands) and, per minimum, the raised
-#     and the lowered offsets (2 compares, 2 adds each), the select and
-#     the clip to 7 = 2 + 2 x 10;
-#   EF 2's erasure, per edge that starts a weight-3 column and MP
-#     iteration in the floor window: the VN's 3 votes (2 adds), the
-#     compare, the frame gate (and) and the select = 5;
-#   syndrome sweep: one xor per edge, and one hard decision (en > 0) per
-#     VN where en changed since the last sweep (every MP sweep, and once
-#     as a BF tail starts; its sweeps read the hard bits); the
-#     map-keeping styles (EF 1, EF 2, selective OMS) add each frame's
-#     count, one add per check; NMS runs no sweep;
-#   DTBF flip, per weight-gamma bit and round: gamma vote adds, the
-#     disagreement xor, multiply-add, compare, flip xor = gamma + 4; 2B1C
-#     adds the reliability test and the demote select (+2), and seeds the
-#     reliability bits once (2 compares, an or: +3 per VN);
-#   static BF, per round: the votes of every column (one add per edge),
-#     and per VN the frame's max, the compare and the flip xor (+3);
-#   kernel B's error count: one add per info bit.
-PHILOX_OPS = 10 * 8
-PHILOX_KEY_OPS = 9 * 2
-ROW_OPS = {   # style -> (per edge, per check) of one row update
-    "faid": (12 + 8, 4), "faid_ef1": (12 + 8, 7), "faid_ef2": (12 + 8, 7),
-    "nms": (8 + 9, 6), "oms_selective": (9 + 9, 2 + 2 * 10),
-    "oms_offset": (9 + 9, 4)}
-EF2_OPS_PER_ERASING_EDGE = 5
-KEEPS_MAP = ("faid_ef1", "faid_ef2", "oms_selective")
-SYNDROME_OPS_PER_EDGE = 1
-HARD_OPS_PER_VN = 1
 
 # Every decode method besides the main path's, as (label, method,
 # factor_1, factor_2): DecoderConfig.for_method's, and NMS also at the
@@ -227,12 +197,6 @@ OTHER_METHODS = (("NMS 1/6", 0, 1, 6), ("NMS 26/32", 0, 26, 32),
 # (label, method, DecoderConfig fields)
 WIDE_CONFIGS = (("FAID_DTBF offset 8", 2, {"oms_offset": 8}),
                 ("FAID_2B1C offset 8", 5, {"oms_offset": 8}))
-# the peak int8 tensor-core rate of the H100 SXM at 700 W, dense (NVIDIA's
-# data sheet): the encoder's product
-PEAK_INT8_OPS_PER_S = 1979e12
-# the JAX package's method names (docs/refcheck_fer_compare.json)
-METHOD_NAMES = {0: "NMS", 1: "OMS", 2: "FAID_DTBF", 3: "OMS_BF", 4: "OMS_DTBF",
-                5: "FAID_2B1C"}
 
 
 # the decoder template's ids (csrc/decoder.cuh Out, Style, Bf)
@@ -286,120 +250,6 @@ def max_abs_diff(pairs) -> int:
                for a, b in pairs)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
-    fn()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def in_turns(kernel, plain, reps_kernel: int, reps_plain: int):
-    """(kernel ms, plain ms), each the mean of two timings taken in the
-    order plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain, reps_plain)
-    k1 = cuda_ms(kernel, reps_kernel)
-    k2 = cuda_ms(kernel, reps_kernel)
-    p2 = cuda_ms(plain, reps_plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def bound(n_bytes: float, n_ops: float):
-    """(least ms, what bounds it) for work that moves ``n_bytes`` and does
-    ``n_ops`` int32 operations."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def channel_ops(batch: int, n_var: int, quant_bits_l: int) -> float:
-    return (batch * n_var * (PHILOX_OPS / 4 + 4 * quant_bits_l + 6)
-            + PHILOX_KEY_OPS)
-
-
-def style_key(dcfg) -> str:
-    if dcfg.method == 0:
-        return "nms"
-    if dcfg.method in (1, 3, 4):
-        return "oms_selective" if dcfg.oms_mode == 1 else "oms_offset"
-    return ("faid", "faid_ef1", "faid_ef2")[dcfg.ef_elimination]
-
-
-def decoder_ops(code, tables, mp_iters: torch.Tensor,
-                bf_rounds: torch.Tensor) -> float:
-    """The decoder's arithmetic for this run's per-frame iteration counts:
-    each MP iteration's syndrome sweep and row updates, the sweep that
-    finds a word clean, and, where MP ran out, the hard decisions that
-    open the BF tail and each of its sweeps and flip rounds (a sweep that
-    finds the word clean ends the tail before its round cap)."""
-    dcfg, bfc = tables.dcfg, tables.dcfg.bf
-    edges = int(code.degrees_np.sum()) * code.z
-    style = style_key(dcfg)
-    per_edge, per_check = ROW_OPS[style]
-    mp = mp_iters.to(torch.float64)
-    bf = bf_rounds.to(torch.float64)
-    zero = torch.zeros_like(mp)
-    sweeps = (mp + (mp_iters < dcfg.max_iter).to(torch.float64)
-              if dcfg.stop_early else zero)
-    tail = tail_sweeps = zero
-    if bfc.kind != "none":
-        tail = (mp_iters == dcfg.max_iter).to(torch.float64)
-        tail_sweeps = tail * (bf + (bf_rounds < bfc.max_iter).to(torch.float64))
-    vote_bits = int(tables.vote_col.numel()) * code.z
-    if bfc.kind == "static":
-        per_round = int(tables.vote_ptr[-1]) * code.z + 3 * vote_bits
-    else:
-        per_round = vote_bits * (bfc.gamma + 4 + 2 * (bfc.kind == "dtbf2b1c"))
-    keeps_map = style in KEEPS_MAP
-    if style == "faid_ef2" and dcfg.stop_early:
-        # the iterations in the floor window: index >= max_iter - 1 - thresh
-        first = max(0, dcfg.max_iter - 1 - dcfg.floor_iter_thresh)
-        window = torch.clamp(mp - first, min=0)
-        erasing = int((tables.ef_ptr >= 0).sum()) * code.z
-        ops_ef2 = window * erasing * EF2_OPS_PER_ERASING_EDGE
-    else:
-        ops_ef2 = zero
-    ops = (mp * (edges * per_edge + code.n_chk * per_check) + ops_ef2
-           + sweeps * (edges * SYNDROME_OPS_PER_EDGE
-                       + code.n_var * HARD_OPS_PER_VN + code.n_chk * keeps_map)
-           + tail * code.n_var * (HARD_OPS_PER_VN + 3 * (bfc.kind == "dtbf2b1c"))
-           + tail_sweeps * edges * SYNDROME_OPS_PER_EDGE
-           + bf * per_round)
-    return float(ops.sum())
-
-
-def reference_fer(method: str, factor_1: int, factor_2: int,
-                  source: str = "ref") -> tuple[float, int]:
-    """The QPSK 3.6 dB row of ``method``: the reference simulator's
-    (``source="ref"``, group stop mode) or the JAX package's frame stop
-    mode run (``"frame"``)."""
-    rows = json.loads((REPO / "docs" / "refcheck_fer_compare.json").read_text())
-    for r in rows["rows"]:
-        if (r["method"] == method and r["snr_db"] == 3.6 and r["mod_type"] == 2
-                and r["depth"] == 1 and r["lut"] == "faid3"
-                and r["scale"] == 13.0 and r["factor_1"] == factor_1
-                and r["factor_2"] == factor_2):
-            return r[f"{source}_fer"], r[f"{source}_frames"]
-    fail(f"no {method} QPSK 3.6 dB row in docs/refcheck_fer_compare.json")
-
-
-def fer_z(error_frames: int, frames: int, method: str = "FAID_DTBF",
-          factor_1: int = 1, factor_2: int = 6, source: str = "ref") -> float:
-    """Two-proportion z of an FER against ``reference_fer``'s row."""
-    ref_fer, ref_n = reference_fer(method, factor_1, factor_2, source)
-    fer = error_frames / frames
-    pbar = (error_frames + ref_fer * ref_n) / (frames + ref_n)
-    z = (fer - ref_fer) / math.sqrt(pbar * (1 - pbar) * (1 / frames + 1 / ref_n))
-    print(f"{method} FER {fer:.6f} over {frames} frames vs {source} row {ref_fer} "
-          f"over {ref_n}: z = {z:.3f}")
-    return z
-
-
 def check_fer(out: dict, method: str, factor_1: int, factor_2: int, label: str,
               source: str = "ref"):
     """The FER z-test of a loop's counters; a row of exactly 1.0 (NMS at
@@ -415,30 +265,6 @@ def check_fer(out: dict, method: str, factor_1: int, factor_2: int, label: str,
     check(abs(z) <= Z_LIMIT, f"{label}: |z| = {abs(z):.2f} > {Z_LIMIT}")
 
 
-def device_profile(what: str, fn, rounds: int, card: str):
-    """torch.profiler over one call of fn, which runs ``rounds`` rounds:
-    per round, the wall time, the device's busy time and idle share, and
-    the kernels that took the most device time (kernels only: an
-    operator's entry repeats its kernels' time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total / 1e3 / rounds, e.count, e.key)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"profile of {what} ({card}), per round: wall {wall_ms / rounds:.4f} ms, "
-          f"device busy {busy:.4f} ms (idle {1 - busy * rounds / wall_ms:.1%} of the "
-          f"wall time); top: " + "; ".join(
-              f"{k[:48]} x{c // rounds} {ms:.4f} ms" for ms, c, k in rows[:8]))
-
-
 # ---- phases 17-20: kernel G (16/64/256-QAM) and the float channel chain ----
 # Each QAM configuration's waterfall point (FER 0.01-0.5 with FAID_DTBF,
 # frame stop mode, real codewords; found with the float chain), tried in
@@ -451,91 +277,6 @@ QAM_POINTS = {4: (4, (7.5, 7.3, 7.7)), 6: (4, (12.5, 12.3, 12.7)),
               8: (6, (16.6, 16.4, 16.8))}
 SPEED_OFFSET_DB = 0.4
 QAM_NAMES = {1: "BPSK", 2: "QPSK", 4: "16-QAM", 6: "64-QAM", 8: "256-QAM"}
-# phase 18's limit on a histogram bin's |z|
-PARITY_LEVEL_Z = 5.0
-# the float chain's noise draw, per sample: a quarter of one Philox call
-# and the mantissa's shift and or; its float work (the uniform's affine
-# map, erfinv, the scale) is not counted, so its bound is a lower one
-NOISE_INT_OPS = PHILOX_OPS / 4 + 2
-
-
-def qam_rail_ops(mod_type: int, quant_bits: int, scale: float) -> float:
-    """Kernel G's int32 work per rail as counted from the plan's size alone
-    (its bound until the count of the inputs, ``qam_least_ops``): a
-    quarter of one Philox call, the mirror xor, the magnitude index (a
-    shift-add per magnitude bit), then a binary search of the word among
-    the 2 nparam + 1 cells that row m's sorted thresholds and their points
-    cut the words into (a compare and a select a step: every level's LLR
-    and hard decision are step functions of the word, constant on each
-    cell), and per level a read of the cell's (q, hard) from a per-row
-    table, the clip (min, max), level 0's sign restore (xor, sub) and each
-    other level's error xor.  It counts more than the function needs: the
-    rows repeat values, one packed read serves every level, and the map's
-    xor and the symmetric widths' clip fold into the table."""
-    from faid_tpu_torch.ops import qam_plan
-
-    h = mod_type // 2
-    _, defs = qam_plan._plan(mod_type, quant_bits, float(scale))
-    search = math.ceil(math.log2(2 * len(defs) + 1))
-    return PHILOX_OPS / 4 + 1 + (h - 1) + 2 * search + 3 * h + 2 + (h - 1)
-
-
-def qam_walk_ops(mod_type: int, quant_bits: int, scale: float) -> float:
-    """The work of kernel G's former interval walk (the cell table's search
-    replaced it), per rail: the same draw, mirror, index and per-level
-    tail, but the walk over every interval of the plan (2 compares, an and
-    and an add; one compare and an add for a half-line) in place of the
-    search.  The walk is the same for every rail."""
-    from faid_tpu_torch.ops import qam_plan
-
-    h = mod_type // 2
-    table = qam_plan.plan_table(mod_type, quant_bits, scale).tolist()
-    ent = table[4 * h + 1:]
-    walk = sum(2 if (v & 0xFFFF) == 0 or (v >> 16) == 0 else 4 for v in ent)
-    return PHILOX_OPS / 4 + 1 + (h - 1) + walk + 2 * h + 2 + (h - 1)
-
-
-def qam_least_ops(params, m, mod_type: int, quant_bits: int) -> float:
-    """The least int32 work of kernel G's function on these inputs: per
-    rail (``m`` [batch, rails], each rail's row) a quarter of one Philox
-    call, the mirror xor, the magnitude index (a shift-add per magnitude
-    bit), a binary search of the word among the 2 |U_m| + 1 cells that
-    row m's distinct thresholds U_m cut the words into (a compare and a
-    select a step), one read of the rail's packed cell (every level's LLR
-    and map bit; the map's magnitude xor is folded into the table), level
-    0's sign restore (xor, sub) and, for the asymmetric widths only, its
-    clip (min, max); and the key schedule once."""
-    from faid_tpu_torch.ops.fixed_point import _QUANT_LIMITS
-
-    lo, hi = _QUANT_LIMITS[quant_bits]
-    steps = torch.tensor([math.ceil(math.log2(2 * len(torch.unique(row)) + 1))
-                          for row in params.cpu()])
-    per_row = torch.bincount(m.reshape(-1).cpu(), minlength=len(steps))
-    per_rail = PHILOX_OPS / 4 + 1 + (mod_type // 2 - 1) + 1 + 2 + (2 if -lo != hi else 0)
-    return m.numel() * per_rail + 2 * int((steps * per_row).sum()) + PHILOX_KEY_OPS
-
-
-def kernel_device_ms(fn, reps: int):
-    """(device ms, host ms) per call of fn() over reps calls: the device
-    time of the kernels it launches (torch.profiler), and the host's time
-    to issue one call (without the profiler, whose tracing slows it)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host = (time.perf_counter() - t0) / reps * 1e3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / reps, host
 
 
 def sm_clock() -> str:
@@ -587,16 +328,6 @@ def tie_thresholds(params, ixe, m, gen):
         out[row, cols.to(out.device)] = vals.clamp(-(2**31), 2**31 - 1).to(
             torch.int32).to(out.device)
     return out
-
-
-def parity_rows():
-    return json.loads((REPO / "docs" / "channel_parity.json").read_text())
-
-
-def two_prop_z(e1: int, n1: int, e2: int, n2: int) -> float:
-    p = (e1 + e2) / (n1 + n2)
-    se = math.sqrt(p * (1 - p) * (1 / n1 + 1 / n2)) if 0 < p < 1 else 0.0
-    return (e1 / n1 - e2 / n2) / se if se else 0.0
 
 
 def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
@@ -739,45 +470,20 @@ def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
 
     # ---- phase 18: kernel G's law against the analytic histogram ------------
     t_phase = time.perf_counter()
-    row = next(r for r in parity_rows()["histograms"] if r["label"] == "16qam")
-    hcfg = qcfg(4, quant_bits=4, interleave_depth=1)
-    tables = cc.qam_tables(
-        qam_plan.plan_threshold_ints(hcfg, sigma_for(hcfg, row["snr_db"])).to(dev),
-        4, hcfg.quant_bits, hcfg.scale)
-    nsym = n // 4
-    hist = torch.zeros(2, 16, dtype=torch.int64, device=dev)
-    rounds = -(-int(5e8) // (BATCH * nsym * 2))
-    for r in range(rounds):
-        llr, _ = cc.quantile_channel_qam(tables, **g_kw(hcfg, None,
-                                                        philox.stream_round(18, r)))
-        v = llr.view(BATCH, nsym, 2, 2).to(torch.int64) + 8
-        for lev in range(2):
-            hist[lev] += torch.bincount(v[:, :, lev, :].reshape(-1), minlength=16)
-    hist = hist.cpu()
-    worst = 0.0
-    for lev, lrow in enumerate(row["levels"]):
-        total = int(hist[lev].sum())
-        seen = set()
-        for b in lrow["bins"]:
-            p = b["expected"] / lrow["draws"]
-            obs = int(hist[lev][b["q"] + 8])
-            exp = p * total
-            seen.add(b["q"])
-            if b["z"] is None:      # too little mass for a normal z
-                check(obs <= exp + 5 * math.sqrt(exp) + 1,
-                      f"16-QAM level {lev} bin {b['q']}: {obs} draws where "
-                      f"{exp:.2f} are expected")
-                continue
-            z = (obs - exp) / math.sqrt(exp * (1 - p))
-            worst = max(worst, abs(z))
-            check(abs(z) <= PARITY_LEVEL_Z,
-                  f"16-QAM level {lev} bin {b['q']}: |z| = {abs(z):.2f}")
-        others = sum(int(hist[lev][q + 8]) for q in range(-8, 8) if q not in seen)
-        check(others == 0, f"16-QAM level {lev}: {others} draws outside the law's bins")
-    print(f"kernel G's law, 16-QAM 8.1 dB, depth 1, 4-bit, scale 13, all-zero word: "
-          f"{rounds} launches, {int(hist[0].sum())} draws a level, worst bin |z| "
-          f"{worst:.2f} against docs/channel_parity.json's analytic probabilities "
-          f"(limit {PARITY_LEVEL_Z})")
+    reset_counts()
+    h = channel_parity.hist_row(code, dev, "16qam", 4, 8.1, batch=BATCH,
+                                launches=channel_parity.HIST_ROUNDS, seed=SEED)
+    k = counts()
+    for lv in h["levels"]:
+        print(f"kernel G's law, 16-QAM 8.1 dB, depth 1, 4-bit, scale 13, all-zero "
+              f"word, level {lv['level']}: {lv['draws']} draws in {h['launches']} "
+              f"launches, worst bin |z| {lv['max_abs_z']} (chi2 {lv['chi2']} over "
+              f"{lv['ndof']} bins) against the float64 erfc law of "
+              f"faid_tpu_torch/scripts/channel_parity.py (limit "
+              f"{channel_parity.HIST_Z}); {lv['outside']} draws outside its bins")
+    check(h["consistent"], f"kernel G's 16-QAM law: {h['levels']}")
+    check(k["G"] == channel_parity.HIST_ROUNDS,
+          f"the 16-QAM histogram launched {k}")
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 19: the float chain on the card ------------------------------
@@ -832,7 +538,8 @@ def qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
         return out, k
 
     g_launches = 0
-    prow = {(r["label"], r["snr_db"]): r for r in parity_rows()["points"]}
+    prow = {(r["label"], r["snr_db"]): r
+            for r in _common.channel_parity_rows()["points"]}
     for label, mod, snr, backend in (("qpsk", 2, 3.6, "xla"), ("bpsk", 1, 3.6, "xla"),
                                      ("16qam-d2", 4, 7.5, "xla"),
                                      ("16qam-d2", 4, 7.5, "fused")):
@@ -1394,6 +1101,124 @@ def sharded_path(code, cfg, card, campaign, mbit_zero: float, mbit_codewords: fl
     print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
 
 
+
+# ---- phase 24: the port's scripts (faid_tpu_torch/scripts/) on the card -----
+# the floor campaign's frame budget, run to half of it and then resumed
+FLOOR_FRAMES = 1_024_000
+ROOFLINE_STAGES = ("message stream", "encoder", "noise", "modem", "quantizer", "A",
+                   "C", "G", "B", "E", "F")
+
+
+def scripts_on_card(card, reset_counts, counts):
+    """Phase 24: each script's ``main(argv)`` in this process at full width,
+    its artifacts in a temporary directory, every row held to its check."""
+    from faid_tpu_torch.scripts import (backend_parity, fer_validation,
+                                        floor_campaign, roofline)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        # (a) the FER waterfall's 3.6 dB rows, group mode, against the TPU's
+        t0 = time.perf_counter()
+        reset_counts()
+        rc = fer_validation.main(["--snrs", "3.6", "--stop-mode", "group",
+                                  "--out", str(tmp / "V.md"),
+                                  "--json-out", str(tmp / "v.json")])
+        k = counts()
+        rows = json.loads((tmp / "v.json").read_text())
+        print(f"phase 24(a): fer_validation --snrs 3.6 --stop-mode group ({card}): rc "
+              f"{rc}, launches {k}, {time.perf_counter() - t0:.1f} s")
+        check(rc == 0 and len(rows) == 6 and all(r["consistent"] for r in rows),
+              f"fer_validation: a row is inconsistent with its TPU row: {rows}")
+        check(all(r["launches"]["F"] > 0
+                  and r["launches"]["A"] == r["launches"]["B"] == 0 for r in rows),
+              "fer_validation: a row did not run on kernel F alone")
+        table = (tmp / "V.md").read_text().splitlines()
+        check(sum(line.startswith("| ") for line in table) == 1 + len(rows),
+              "fer_validation's table lacks a row")
+
+        # (b) the QPSK 4.0 dB law of kernel C over ~1.1e9 draws
+        t0 = time.perf_counter()
+        reset_counts()
+        rc = channel_parity.main(["--fer-rows", "none", "--hist-rows", "qpsk@4.0",
+                                  "--out", str(tmp / "cp.json")])
+        k = counts()
+        cp = json.loads((tmp / "cp.json").read_text())
+        h = cp["histograms"][0]
+        print(f"phase 24(b): channel_parity, QPSK 4.0 dB histogram ({card}): rc {rc}, "
+              f"{h['draws']} draws, worst bin |z| {h['max_abs_z']}, launches {k}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(rc == 0 and cp["all_consistent"], f"kernel C's QPSK law: {h}")
+        check(k["C"] == channel_parity.HIST_ROUNDS and h["launches"] == k["C"],
+              f"the histogram launched {k}")
+
+        # (c) the floor campaign at 3.9 dB: half the budget, then the whole
+        # resumed, against one run of the whole
+        t0 = time.perf_counter()
+        argv = ["--methods", "2", "--snr", "3.9", "--calls", "2"]
+        runs = {}
+        for name, frames, out in (("half", FLOOR_FRAMES // 2, "resumed"),
+                                  ("resumed", FLOOR_FRAMES, "resumed"),
+                                  ("whole", FLOOR_FRAMES, "whole")):
+            reset_counts()
+            rc = floor_campaign.main([*argv, "--max-frames", str(frames),
+                                      "--out", str(tmp / out / "floor.json")])
+            row = json.loads((tmp / out / "floor.json").read_text())[0]
+            runs[name] = (rc, counts(), row)
+            print(f"phase 24(c): floor_campaign FAID_DTBF 3.9 dB, --max-frames {frames} "
+                  f"({name}, {card}): rc {rc}, {row['error_frames']} errors in "
+                  f"{row['frames']} frames, z {row.get('z')} against "
+                  f"docs/floor_group.json, launches {runs[name][1]}")
+        rows = {n: r for n, (_, _, r) in runs.items()}
+        keys = ("frames", "error_frames", "fer", "ber", "avg_mp_iters", "avg_bf_rounds")
+        check(all(rc == 0 for rc, _, _ in runs.values()),
+              "floor_campaign failed, or a row is inconsistent with "
+              "docs/floor_group.json")
+        check({k_: rows["resumed"][k_] for k_ in keys}
+              == {k_: rows["whole"][k_] for k_ in keys},
+              f"the resumed floor row differs from one run of the whole budget: {rows}")
+        rounds = {n: r["frames"] // BATCH for n, r in rows.items()}
+        launched = {n: k_["F"] for n, (_, k_, _) in runs.items()}
+        check(launched["half"] == rounds["half"] and launched["whole"] == rounds["whole"]
+              and launched["resumed"] == rounds["whole"] - rounds["half"] > 0,
+              f"the floor campaign's launches of F: {runs}")
+        check(not any(r.get("partial") for r in rows.values()),
+              "a floor row stayed partial")
+        print(f"phase 24(c): the resumed row equals one run of {FLOOR_FRAMES} frames "
+              f"counter for counter; {time.perf_counter() - t0:.1f} s")
+
+        # (d) the roofline at batch 2048
+        t0 = time.perf_counter()
+        rc = roofline.main(["--batch", str(BATCH), "--out", str(tmp / "r.json")])
+        rl = json.loads((tmp / "r.json").read_text())
+        print(f"phase 24(d): roofline ({card}): rc {rc}, "
+              + ", ".join(f"{n} {s['ms']:.4f} ms ({s['share']:.1%})"
+                          for n, s in rl["stages"].items())
+              + f"; {time.perf_counter() - t0:.1f} s")
+        check(rc == 0 and tuple(rl["stages"]) == ROOFLINE_STAGES,
+              f"roofline's stages: {list(rl['stages'])}")
+        check(all(0 < s["share"] <= 1.05 and s["ms"] > 0
+                  for s in rl["stages"].values()),
+              "a roofline stage's share lies outside (0, 1.05]")
+
+        # (e) the decoder kernels against their plain twin, six methods
+        t0 = time.perf_counter()
+        reset_counts()
+        rc = backend_parity.main(["--batch", "128", "--words", "2",
+                                  "--out", str(tmp / "bp.json")])
+        k = counts()
+        bp = json.loads((tmp / "bp.json").read_text())
+        print(f"phase 24(e): backend_parity --batch 128 --words 2 ({card}): rc {rc}, "
+              + ", ".join(f"{r['method']} {'MATCH' if r['match'] else 'MISMATCH'}"
+                          for r in bp["rows"])
+              + f", launches {k}; {time.perf_counter() - t0:.1f} s")
+        check(rc == 0 and bp["all_match"] and len(bp["rows"]) == 6,
+              "backend_parity: a kernel differs from its plain twin")
+        check(k["D"] > 0 and k["E"] > 0, f"backend_parity launched {k}")
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     # --coverage-only: the build, its ptxas report and phase 21 alone
     coverage_only = sys.argv[1:] == ["--coverage-only"]
@@ -1417,24 +1242,17 @@ def main():
         fail(f"the faid_tpu_torch package is not importable here: {e}")
     check(not any(m.split(".")[0] in ("jax", "faid_tpu") for m in sys.modules),
           "JAX or faid_tpu was imported")
-    wrappers = {"A": cc.quantile_channel, "B": cd.stats_decode,
-                "C": cc.quantile_channel_map, "D": cd.full_decode,
-                "E": cd.mp_decode, "F": cs.fused_sim, "emit": cs.fused_sim_emit,
-                "G": cc.quantile_channel_qam}
+    wrappers = _common.kernel_wrappers()
 
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
 
-    def counts() -> dict:
-        return {k: w.launches for k, w in wrappers.items()}
+    counts = _common.launch_counts
 
     dev = torch.device("cuda:0")
     try:
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader", "-i", "0"], capture_output=True,
-            text=True, check=True, timeout=60).stdout.strip()
+        card = _common.card_line(dev)
     except (OSError, subprocess.SubprocessError) as e:
         fail(f"nvidia-smi could not read the card: {e}")
     print(card, flush=True)
@@ -2255,7 +2073,7 @@ def main():
               f"the frame-mode campaign launched {fr_counts}")
         # the codeword row: docs/channel_parity.json, QPSK 3.6 dB, FAID_DTBF,
         # real codewords, frame mode, the quantile channel
-        prow = next(r for r in parity_rows()["points"]
+        prow = next(r for r in _common.channel_parity_rows()["points"]
                     if r["label"] == "qpsk" and r["snr_db"] == 3.6)["fused"]
         z = two_prop_z(cf["error_frames"], cf["test_frames"], prow["errors"],
                        prow["frames"])
@@ -2282,6 +2100,7 @@ def main():
     err_b, err_d, err_e = (max(err_b, cov["B"]), max(err_d, cov["D"]),
                            max(err_e, cov["E"]))
     sharded_path(code, cfg, card, campaign, mbit_s, mbit_r)
+    scripts_on_card(card, reset_counts, counts)
 
     def entry(name, key, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": source,

@@ -46,7 +46,7 @@ import torch
 
 from . import modem, philox
 from .fixed_point import _QUANT_LIMITS
-from .qam_plan import (CELL_ENTRY_WORDS, _plan, cell_table, grid,
+from .qam_plan import (CELL_ENTRY_WORDS, _plan, cell_table, grid, ndtr,
                        plan_threshold_ints, staircase_qam, step_offsets)
 
 _AMPLITUDE = {1: 1.0, 2: 0.707107}   # BPSK; QPSK rail
@@ -68,7 +68,6 @@ def threshold_ints(cfg, sigma: float) -> torch.Tensor:
     inv_scale = torch.tensor(1.0 / cfg.scale, **f32)
     k = torch.as_tensor(step_offsets(cfg.quant_bits), **f32)
     imax, imin = 2**31 - 1, -(2**31)
-    ndtr = torch.special.ndtr
 
     t_a = (k * inv_scale + a) / srail
     A = imax - grid(ndtr(-t_a))

@@ -383,6 +383,35 @@ class MonteCarloRunner:
         self._save_checkpoint()
         return res
 
+    def point_counters(self) -> dict:
+        """The counters of the pending SNR point so far: zero at its start,
+        a resumed or reopened point's from before."""
+        return dict(self._state["counters"])
+
+    def reopen_last_point(self) -> bool:
+        """Hands the last finished SNR point back to the sweep where its
+        counters meet neither the stopping rule nor the budget of this
+        runner's config (a deeper rule than the one it finished under: more
+        errors, a larger frame budget).  ``run_point`` then continues it
+        from its next round, as a resume continues a point cut off mid-way,
+        so the point's counters equal one run under the deeper rule.
+        Returns True where it reopened the point."""
+        if not self.results:
+            return False
+        res = self.results[-1]
+        c = res.counters
+        if self._stop_satisfied(c) or self._budget_exhausted(c):
+            return False
+        self.results.pop()
+        self._state = {
+            "snr_idx": len(self.results),
+            # every round adds batch frames on every rank
+            "round": c["test_frames"] // (self.cfg.batch_per_device
+                                          * self.world_size),
+            "counters": dict(c), "err_chunks": list(res.err_chunks),
+            "err_chunks_truncated": False}
+        return True
+
     # -- reporting ----------------------------------------------------------
     def report_rows(self) -> list[dict]:
         return [r.rates(self.code.n_info, self.cfg.mod_type)

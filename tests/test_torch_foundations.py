@@ -132,6 +132,13 @@ def test_port_imports_no_jax():
             "faid_tpu_torch.cli", "faid_tpu_torch.utils.kernels",
             "faid_tpu_torch.utils.profile", "faid_tpu_torch.parallel.mesh",
             "faid_tpu_torch.bench",
+            "faid_tpu_torch.scripts._common",
+            "faid_tpu_torch.scripts.fer_validation",
+            "faid_tpu_torch.scripts.channel_parity",
+            "faid_tpu_torch.scripts.floor_campaign",
+            "faid_tpu_torch.scripts.roofline",
+            "faid_tpu_torch.scripts.backend_parity",
+            "faid_tpu_torch.scripts.bench_decoder",
             # the ranks of the multi-process checks (tests and chip_smoke.py)
             "_torch_dist"]
     prog = ("import importlib, sys\n"
