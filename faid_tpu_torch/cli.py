@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 from pathlib import Path
@@ -88,7 +89,10 @@ def build_argparser() -> argparse.ArgumentParser:
                          "auto when FER < 1e-5, the reference collectflag)")
     ap.add_argument("--trace-dir", type=str, default=None,
                     help="write a torch.profiler chrome trace of the first "
-                         "SNR point run to DIR/trace.json")
+                         "SNR point run to DIR/trace.json (its faid.* ranges "
+                         "are the campaign's spans, tagged with their sync), "
+                         "and each sync's span and counter totals to "
+                         "DIR/syncs.json at the end of the run")
     ap.add_argument("--backend", type=str, default=None,
                     choices=["auto", "plain"],
                     help="decoder backend: auto (the CUDA kernels on a GPU, "
@@ -249,6 +253,7 @@ def _run(args, cfg, mesh) -> int:
     import torch
 
     from .sim.runner import MonteCarloRunner
+    from .utils import trace
 
     device = mesh.device
     lead = mesh.rank == 0
@@ -276,17 +281,21 @@ def _run(args, cfg, mesh) -> int:
         acts = [ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        # shapes recorded: the ranges' sync tags reach the trace with them
+        with profile(activities=acts, record_shapes=True) as prof:
             runner.run_point(progress=progress)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         if lead:
-            trace = Path(args.trace_dir)
-            trace.mkdir(parents=True, exist_ok=True)
-            prof.export_chrome_trace(str(trace / "trace.json"))
+            trace_dir = Path(args.trace_dir)
+            trace_dir.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(trace_dir / "trace.json"))
     runner.run(progress=progress)
     if not lead:
         return 0
+    if args.trace_dir:
+        (Path(args.trace_dir) / "syncs.json").write_text(
+            json.dumps(trace.recent()))
     if not args.quiet:
         sys.stdout.write("\n")
 

@@ -31,6 +31,7 @@ import torch.distributed as dist
 from ..code.qc_matrix import QCCode
 from ..config import SimConfig
 from ..sim.pipeline import build_sim_loop, build_sim_step
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,13 +82,15 @@ def all_reduce_counters(stats: dict) -> dict:
     ONE all-reduce of one packed int64 tensor; returns the same keys,
     shapes and dtype.  int32 sums wrap as the one-rank loop's do, so the
     result equals the one-rank sum bit for bit."""
-    flat = torch.cat([v.reshape(-1).to(torch.int64) for v in stats.values()])
-    dist.all_reduce(flat)
-    out, i = {}, 0
-    for k, v in stats.items():
-        out[k] = flat[i:i + v.numel()].reshape(v.shape).to(v.dtype)
-        i += v.numel()
-    return out
+    with trace.span("mesh.all_reduce"):
+        flat = torch.cat([v.reshape(-1).to(torch.int64)
+                          for v in stats.values()])
+        dist.all_reduce(flat)
+        out, i = {}, 0
+        for k, v in stats.items():
+            out[k] = flat[i:i + v.numel()].reshape(v.shape).to(v.dtype)
+            i += v.numel()
+        return out
 
 
 def build_sharded_sim_step(code: QCCode, cfg: SimConfig,

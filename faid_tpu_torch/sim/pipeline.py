@@ -69,6 +69,7 @@ from ..ops.cuda_channel import (ThresholdCache, mod_stats, quantile_channel,
                                 quantile_channel_map, quantile_channel_qam)
 from ..ops.cuda_sim import build_fused_sim, build_fused_sim_emit, supports_sim
 from ..ops.fixed_point import _QUANT_LIMITS
+from ..utils import trace
 
 
 def _histogram(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -150,9 +151,11 @@ def _codewords(code: QCCode, cfg: SimConfig, device, frame0: int):
     encode = make_encode_fn(code, device)
 
     def codewords(seed: int, rnd: int) -> torch.Tensor:
-        return encode(philox.message_bits(seed, rnd, frame0,
-                                          cfg.batch_per_device, code.n_info,
-                                          device))
+        with trace.span("pipeline.message_stream"):
+            bits = philox.message_bits(seed, rnd, frame0, cfg.batch_per_device,
+                                       code.n_info, device)
+        with trace.span("pipeline.encoder"):
+            return encode(bits)
 
     return codewords
 
@@ -205,6 +208,30 @@ def _check_frames(cfg: SimConfig, frame0: int) -> None:
     philox.check_stream_args(0, 0, frame0, cfg.batch_per_device)
 
 
+def _round_counters(out: dict, batch: int, max_iter: int, bf_cap: int) -> dict:
+    """A round's counters from the decoder's and the channel's per-frame
+    outputs, on their device."""
+    err = out["err_bits"]
+    mod_bits = out["mod_error_bits"]
+    frame_err = err > 0
+    return {
+        # a fill kernel, not a host-to-device copy that would sync the
+        # host with the device every round
+        "test_frames": torch.full((), batch, dtype=torch.int32,
+                                  device=err.device),
+        "error_bits": err.sum(dtype=torch.int32),
+        "error_frames": frame_err.sum(dtype=torch.int32),
+        "lt3_frames": (frame_err & (err < 3)).sum(dtype=torch.int32),
+        "mod_error_bits": mod_bits.sum(dtype=torch.int32),
+        "mod_error_symbols": out["mod_error_symbols"].sum(dtype=torch.int32),
+        "mod_error_frames": (mod_bits > 0).sum(dtype=torch.int32),
+        "mp_iters": out["mp_iters"].sum(dtype=torch.int32),
+        "bf_rounds": out["bf_rounds"].sum(dtype=torch.int32),
+        "mp_hist": _histogram(out["mp_iters"], max_iter + 1),
+        "bf_hist": _histogram(out["bf_rounds"], bf_cap + 1),
+    }
+
+
 def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool,
                  frame0: int):
     """-> round(seed, rnd, sigma) -> counters on ``device`` for frames
@@ -217,7 +244,11 @@ def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool,
     codewords = _codewords(code, cfg, device, frame0)
     bf_cap = max(dcfg.bf.max_iter, 1)
     if fuse and _fuses(code, cfg):
-        sim = build_fused_sim(code, cfg, device, frame0)
+        fused_sim = build_fused_sim(code, cfg, device, frame0)
+
+        def sim(cw, seed: int, rnd: int, sigma: float) -> dict:
+            with trace.span("pipeline.fused_sim"):
+                return fused_sim(cw, seed, rnd, sigma)
     else:
         decoder = build_stats_decoder(code, dcfg, device)
         quantile = _quantile(cfg)
@@ -225,45 +256,33 @@ def _build_round(code: QCCode, cfg: SimConfig, device, fuse: bool,
             thresholds = ThresholdCache(cfg, device)
 
             def channel(cw, seed: int, rnd: int, sigma: float):
-                return quantile_channel(
-                    thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
-                    n_var=code.n_var, n_info=code.n_info,
-                    mod_type=cfg.mod_type, quant_bits=cfg.quant_bits,
-                    frame0=frame0, cw=cw)
+                with trace.span("pipeline.channel"):
+                    return quantile_channel(
+                        thresholds(sigma), seed=seed, rnd=rnd, batch=batch,
+                        n_var=code.n_var, n_info=code.n_info,
+                        mod_type=cfg.mod_type, quant_bits=cfg.quant_bits,
+                        frame0=frame0, cw=cw)
         else:
             map_channel = _map_channel(code, cfg, device, quantile, frame0)
 
             def channel(cw, seed: int, rnd: int, sigma: float):
-                llr, err, _ = map_channel(cw, seed, rnd, sigma)
-                return (llr, *mod_stats(err, code.n_info, cfg.mod_type))
+                with trace.span("pipeline.channel"):
+                    llr, err, _ = map_channel(cw, seed, rnd, sigma)
+                with trace.span("pipeline.mod_stats"):
+                    return (llr, *mod_stats(err, code.n_info, cfg.mod_type))
 
         def sim(cw, seed: int, rnd: int, sigma: float) -> dict:
             llr, mod_bits, mod_syms = channel(cw, seed, rnd, sigma)
-            return dict(decoder(llr, cw), mod_error_bits=mod_bits,
-                        mod_error_symbols=mod_syms)
+            with trace.span("pipeline.decoder"):
+                out = decoder(llr, cw)
+            return dict(out, mod_error_bits=mod_bits, mod_error_symbols=mod_syms)
 
     def run_round(seed: int, rnd: int, sigma: float) -> dict:
-        cw = None if codewords is None else codewords(seed, rnd)
-        out = sim(cw, seed, rnd, sigma)
-        err = out["err_bits"]
-        mod_bits = out["mod_error_bits"]
-        frame_err = err > 0
-        return {
-            # a fill kernel, not a host-to-device copy that would sync
-            # the host with the device every round
-            "test_frames": torch.full((), batch, dtype=torch.int32,
-                                      device=err.device),
-            "error_bits": err.sum(dtype=torch.int32),
-            "error_frames": frame_err.sum(dtype=torch.int32),
-            "lt3_frames": (frame_err & (err < 3)).sum(dtype=torch.int32),
-            "mod_error_bits": mod_bits.sum(dtype=torch.int32),
-            "mod_error_symbols": out["mod_error_symbols"].sum(dtype=torch.int32),
-            "mod_error_frames": (mod_bits > 0).sum(dtype=torch.int32),
-            "mp_iters": out["mp_iters"].sum(dtype=torch.int32),
-            "bf_rounds": out["bf_rounds"].sum(dtype=torch.int32),
-            "mp_hist": _histogram(out["mp_iters"], dcfg.max_iter + 1),
-            "bf_hist": _histogram(out["bf_rounds"], bf_cap + 1),
-        }
+        with trace.span("pipeline.round"):
+            cw = None if codewords is None else codewords(seed, rnd)
+            out = sim(cw, seed, rnd, sigma)
+            with trace.span("pipeline.counters"):
+                return _round_counters(out, batch, dcfg.max_iter, bf_cap)
 
     return run_round
 
@@ -292,8 +311,11 @@ def build_sim_loop(code: QCCode, cfg: SimConfig, rounds: int,
         acc = None
         for i in range(rounds):
             stats = run_round(seed, round0 + i, sigma)
-            acc = stats if acc is None else {k: acc[k] + v
-                                             for k, v in stats.items()}
+            if acc is None:
+                acc = stats
+                continue
+            with trace.span("pipeline.counters"):
+                acc = {k: acc[k] + v for k, v in stats.items()}
         return acc
 
     return loop

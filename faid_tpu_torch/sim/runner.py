@@ -28,6 +28,10 @@ streams starts fresh instead of merging statistics of other frames
 (which would also make the replay dump the wrong frames).  With
 ``fake_encode`` in the fingerprint, that covers whatever the message
 stream changes.
+
+Each sync (one loop call of ``rounds_per_sync`` rounds, the counter read,
+the bookkeeping and the writes) is one record of the campaign's spans
+(utils/trace.py), with the device's idle time before its first launch.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..code.qc_matrix import QCCode, load_code
 from ..config import SimConfig
 from ..ops import philox
 from ..parallel.mesh import Mesh, build_sharded_sim_loop, make_mesh
+from ..utils import trace
 from .pipeline import build_debug_step, quantile_draws
 
 COUNTER_KEYS = (
@@ -253,16 +258,19 @@ class MonteCarloRunner:
     def _save_checkpoint(self):
         if not (self.checkpoint_path and self._lead):
             return
-        st = {"seed": self.cfg.seed,
-              "config_fingerprint": config_fingerprint(
-                  self.cfg, self.world_size, self._device_type),
-              "world_size": self.world_size,
-              "stream": philox.STREAM_TAG,
-              "state": self._state,
-              "results": [dataclasses.asdict(r) for r in self.results]}
-        tmp = self.checkpoint_path.with_suffix(".tmp")
-        tmp.write_text(json.dumps(st))
-        tmp.replace(self.checkpoint_path)
+        with trace.span("runner.checkpoint"):
+            st = {"seed": self.cfg.seed,
+                  "config_fingerprint": config_fingerprint(
+                      self.cfg, self.world_size, self._device_type),
+                  "world_size": self.world_size,
+                  "stream": philox.STREAM_TAG,
+                  "state": self._state,
+                  "results": [dataclasses.asdict(r) for r in self.results]}
+            data = json.dumps(st).encode()
+            tmp = self.checkpoint_path.with_suffix(".tmp")
+            tmp.write_bytes(data)
+            tmp.replace(self.checkpoint_path)
+        trace.count("runner.checkpoint_bytes", len(data))
 
     # -- core loop ----------------------------------------------------------
     def _write_temp_txt(self, snr_db: float, c: dict):
@@ -275,23 +283,24 @@ class MonteCarloRunner:
         point bit-exactly)."""
         if not (self.temp_txt_path and self._lead):
             return
-        n_info = self.code.n_info
-        tf = max(c["test_frames"], 1)
-        fer = max(c["error_frames"], 1) / tf
-        ber = max(c["error_bits"], 1) / (tf * n_info)
-        lines = [
-            f"{snr_db:>5g}\t{c['test_frames']:>20d}\t"
-            f"{c['error_frames']:>15d}\t{c['error_bits']:>20d}\t"
-            f"{fer:>20.6g}\t{ber:>20.6g}\t{c['lt3_frames']:>15d}\t\n",
-            f"resume: seed={self.cfg.seed} "
-            f"snr_idx={self._state['snr_idx']} "
-            f"round={self._state['round']} "
-            f"(exact resume via checkpoint.json; the stream is "
-            f"counter-based)\n",
-        ]
-        tmp = self.temp_txt_path.with_suffix(".tmp")
-        tmp.write_text("".join(lines))
-        tmp.replace(self.temp_txt_path)
+        with trace.span("runner.temp_txt"):
+            n_info = self.code.n_info
+            tf = max(c["test_frames"], 1)
+            fer = max(c["error_frames"], 1) / tf
+            ber = max(c["error_bits"], 1) / (tf * n_info)
+            lines = [
+                f"{snr_db:>5g}\t{c['test_frames']:>20d}\t"
+                f"{c['error_frames']:>15d}\t{c['error_bits']:>20d}\t"
+                f"{fer:>20.6g}\t{ber:>20.6g}\t{c['lt3_frames']:>15d}\t\n",
+                f"resume: seed={self.cfg.seed} "
+                f"snr_idx={self._state['snr_idx']} "
+                f"round={self._state['round']} "
+                f"(exact resume via checkpoint.json; the stream is "
+                f"counter-based)\n",
+            ]
+            tmp = self.temp_txt_path.with_suffix(".tmp")
+            tmp.write_text("".join(lines))
+            tmp.replace(self.temp_txt_path)
 
     def _stop_satisfied(self, c: dict) -> bool:
         return (c["test_frames"] >= self.cfg.min_frames
@@ -324,31 +333,43 @@ class MonteCarloRunner:
                and not self._budget_exhausted(c)):
             # the sync's last round must stay inside this point's rounds
             philox.stream_round(snr_idx, rnd + self.rounds_per_sync - 1)
-            raw = self.loop(cfg.seed, sigma, philox.stream_round(snr_idx, rnd))
-            stats = {k: v.tolist() for k, v in raw.items()}
-            for k in c:
-                c[k] = _add_counter(c[k], stats[k])
-            if stats["error_frames"] > 0:
-                if len(self._state["err_chunks"]) < MAX_ERR_CHUNKS:
-                    self._state["err_chunks"].append(
-                        [rnd, rnd + self.rounds_per_sync])
-                elif not self._state.get("err_chunks_truncated"):
-                    # No silent caps: later forensics replay only covers
-                    # the recorded ranges, so say so once per SNR point.
-                    self._state["err_chunks_truncated"] = True
-                    warnings.warn(
-                        f"SNR {snr_db:g} dB: error-chunk recording capped "
-                        f"at {MAX_ERR_CHUNKS} ranges; collect_error_frames "
-                        "will only replay the oldest error-bearing rounds",
-                        stacklevel=2)
-            rnd += self.rounds_per_sync
-            sync += 1
-            self._state["round"] = rnd
-            if progress:
-                progress(snr_db, dict(c))
-            self._write_temp_txt(snr_db, c)
-            if sync % 8 == 0:
-                self._save_checkpoint()
+            # the sync's device events lie outside the loop call's span,
+            # so that it times the enqueue alone: a record costs the host
+            # 15-60 us (H100)
+            with trace.sync(snr_idx, rnd, self.rounds_per_sync, self.device), \
+                    trace.span("runner.sync"):
+                with trace.span("runner.loop_call"):
+                    raw = self.loop(cfg.seed, sigma,
+                                    philox.stream_round(snr_idx, rnd))
+                trace.launched()
+                with trace.span("runner.counter_read"):
+                    stats = {k: v.tolist() for k, v in raw.items()}
+                with trace.span("runner.bookkeeping"):
+                    for k in c:
+                        c[k] = _add_counter(c[k], stats[k])
+                    chunks = self._state["err_chunks"]
+                    errors = stats["error_frames"] > 0
+                    if errors and len(chunks) < MAX_ERR_CHUNKS:
+                        chunks.append([rnd, rnd + self.rounds_per_sync])
+                    elif errors and not self._state.get("err_chunks_truncated"):
+                        # No silent caps: later forensics replay only
+                        # covers the recorded ranges, so say so once per
+                        # SNR point.
+                        self._state["err_chunks_truncated"] = True
+                        warnings.warn(
+                            f"SNR {snr_db:g} dB: error-chunk recording "
+                            f"capped at {MAX_ERR_CHUNKS} ranges; "
+                            "collect_error_frames will only replay the "
+                            "oldest error-bearing rounds", stacklevel=2)
+                    rnd += self.rounds_per_sync
+                    sync += 1
+                    self._state["round"] = rnd
+                if progress:
+                    with trace.span("runner.progress"):
+                        progress(snr_db, dict(c))
+                self._write_temp_txt(snr_db, c)
+                if sync % 8 == 0:
+                    self._save_checkpoint()
         seconds = time.monotonic() - t0
         return SnrResult(snr_db, dict(c), seconds,
                          list(self._state["err_chunks"]))

@@ -353,3 +353,13 @@ def test_cli_trace_dir(tmp_path, monkeypatch):
     assert any(e.get("cat") == "cpu_op" for e in events)
     rows = (out / "Result.txt").read_text().splitlines()[1:]
     assert [r.split()[0] for r in rows] == ["6.00", "7.00"]
+    # the campaign's spans are ranges of the trace, tagged with their sync
+    ranges = [e for e in events if e.get("name") == "faid.runner.sync"]
+    assert [e["args"]["sync"] for e in ranges] == ["0:0"]
+    assert sum(e.get("name") == "faid.pipeline.round" for e in events) == 8
+    # one record a sync of the run (one sync of 8 rounds a point), the
+    # traced point's first
+    syncs = json.loads((trace / "syncs.json").read_text())
+    assert [(x["snr_idx"], x["round0"], x["rounds"]) for x in syncs[-2:]] == [
+        (0, 0, 8), (1, 0, 8)]
+    assert syncs[-2]["spans"]["pipeline.round"][0] == 8
