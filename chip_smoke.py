@@ -14,8 +14,8 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
   3. kernel B (stats decoder) against its plain twin, bit for bit, on
      kernel A's 3.6 dB LLRs, and on the toy code at batch 64;
   4. the main path, build_sim_loop at 3.6 dB, batch 2048, 8 rounds: kernel
-     F launched (not A or B), noise flowed, FER z-test against the
-     reference simulator's FAID_DTBF QPSK 3.6 dB row
+     F launched (not A or B, nor the message stream), noise flowed, FER
+     z-test against the reference simulator's FAID_DTBF QPSK 3.6 dB row
      (docs/refcheck_fer_compare.json); the same loop composed from A and
      B (fuse=False) gives the same counters;
   5. CUDA-event timings at 4.0 dB, batch 2048: the main path's
@@ -43,9 +43,13 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
  10. the campaign path of a method without BF: the CLI with --method 1
      (OMS) at 3.6 dB with --collect-errors (F, C and E launched, frames
      dumped), and the replay of one error round against build_sim_step;
- 11. the encoder at batch 2048: bit-equal to the CPU encode of the same
-     message bits, H c = 0 for every frame, its CUDA-event time (a
-     library call, torch._int_mm) beside its bound;
+ 11. the message stream's kernel and the encoder at batch 2048: the
+     kernel's bits equal to the CPU's plain twin, one launch; the encoder
+     bit-equal to the CPU encode of the same message bits, H c = 0 for
+     every frame; the kernel's device time (torch.profiler, over outputs
+     that together exceed L2) and host time a call, its plain twin's
+     CUDA-event time on the card, the encoder's CUDA-event time (a library
+     call, torch._int_mm), each beside its bound;
  12. kernel F against its plain twin and against kernel A then kernel B,
      per frame and counter, for every method, both stop modes, fake and
      real codewords, at 3.6 dB on the full code at batch 2048 and on the
@@ -60,10 +64,11 @@ Builds the CUDA kernels from faid_tpu_torch/csrc, then:
      method at 3.6 dB, FER z-test against the JAX package's frame-mode
      rows;
  15. the main path with real codewords: FER z-test at 3.6 dB (FAID_DTBF,
-     group) against the reference's all-zero-word row (no codeword row in
-     group mode is committed: a different workload, held to the same
-     bound), Mbit/s at 4.0 dB beside the all-zero word's, and kernel F
-     against A + B in turns;
+     group; the message stream's kernel launched once a round) against
+     the reference's all-zero-word row (no codeword row in group mode is
+     committed: a different workload, held to the same bound), Mbit/s at
+     4.0 dB beside the all-zero word's, and kernel F against A + B in
+     turns;
  16. the campaign path with real codewords: the CLI without --fake-encode
      at 3.6/3.7 dB with --collect-errors, its resume, the dumped frame's
      positions against the replay, whose codeword is the encoder's of the
@@ -154,6 +159,7 @@ Imports torch and numpy, never JAX.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import re
@@ -170,7 +176,8 @@ try:
     from faid_tpu_torch.scripts._common import (METHOD_NAMES, fer_z, reference_fer,
                                                 two_prop_z)
     from faid_tpu_torch.scripts.roofline import (PEAK_BYTES_PER_S, PEAK_INT8_OPS_PER_S,
-                                                 PHILOX_KEY_OPS, NOISE_INT_OPS, bound,
+                                                 MESSAGE_OPS_PER_BIT, PHILOX_KEY_OPS,
+                                                 NOISE_INT_OPS, bound,
                                                  channel_ops, cuda_ms, decoder_ops,
                                                  device_profile, in_turns,
                                                  kernel_device_ms, qam_least_ops,
@@ -1371,7 +1378,8 @@ def main():
     main_counts = counts()
     out = {k: v.tolist() for k, v in out.items()}
     print("main path, 3.6 dB:", json.dumps(out), "launches", main_counts)
-    check(main_counts["F"] > 0 and main_counts["A"] == main_counts["B"] == 0,
+    check(main_counts["F"] > 0 and main_counts["A"] == main_counts["B"] == 0
+          and main_counts["M"] == 0,
           f"main path launched kernels {main_counts}, not F alone")
     check(out["test_frames"] == FER_ROUNDS * BATCH, "wrong frame count")
     check(out["mod_error_bits"] > 0, "no channel noise reached the decoder")
@@ -1764,7 +1772,10 @@ def main():
     u_cpu = philox.message_bits(SEED, 5, 0, BATCH, n_info, "cpu")
     cw_cpu = make_encode_fn(code, "cpu")(u_cpu)
     encode = make_encode_fn(code, dev)
+    msg_launches = philox.message_bits.launches
     u = philox.message_bits(SEED, 5, 0, BATCH, n_info, dev)
+    check(philox.message_bits.launches == msg_launches + 1,
+          "the message bits on the card did not launch csrc/message_stream.cu")
     cw5 = encode(u)
     torch.cuda.synchronize()
     msg_diff = max_abs_diff([(u.cpu(), u_cpu)])
@@ -1776,15 +1787,29 @@ def main():
     check(msg_diff == 0 and enc_diff == 0, "the encoder on the card differs from the CPU's")
     check(int(syn.max()) == 0, "a codeword has an unsatisfied check")
     ms_enc = cuda_ms(lambda: encode(u), 20)
-    ms_msg = cuda_ms(lambda: philox.message_bits(SEED, 5, 0, BATCH, n_info, dev), 10)
+    # each call's output stays alive for the next four, so the five blocks
+    # the allocator cycles (150 MB) exceed the 50 MB L2: every call's
+    # bytes go out to HBM, as in a round
+    held = collections.deque(maxlen=4)
+    msg_dev, msg_host = kernel_device_ms(
+        lambda: held.append(philox.message_bits(SEED, 5, 0, BATCH, n_info, dev)), 100)
+    plain_msg = cuda_ms(
+        lambda: philox.message_bits_plain(SEED, 5, 0, BATCH, n_info, dev), 10)
+    held.clear()
+    # the int8 bits written, and Philox's operations on them
+    bounds_m = bound(BATCH * n_info,
+                     BATCH * n_info * MESSAGE_OPS_PER_BIT + PHILOX_KEY_OPS)
+    msg_bound = bounds_m[0]
     enc_bytes = BATCH * n_info + code.n_chk * n_info + BATCH * code.n_var
     enc_ops = 2 * BATCH * n_info * code.n_chk
     enc_bound = max(enc_bytes / PEAK_BYTES_PER_S, enc_ops / PEAK_INT8_OPS_PER_S) * 1e3
     print(f"encoder at batch {BATCH} ({card}): torch._int_mm + parity {ms_enc:.4f} "
           f"ms (a library call), bound {enc_bound:.4f} ms by operations "
           f"({enc_bound / ms_enc:.1%}; {enc_ops:.4g} int8 ops at "
-          f"{PEAK_INT8_OPS_PER_S:.4g}/s); message bits (plain Philox) "
-          f"{ms_msg:.4f} ms")
+          f"{PEAK_INT8_OPS_PER_S:.4g}/s); message bits (kernel, "
+          f"csrc/message_stream.cu) {msg_dev:.4f} ms of device time, bound "
+          f"{msg_bound:.4f} ms by {bounds_m[1]} ({msg_bound / msg_dev:.1%}), host "
+          f"{msg_host:.4f} ms a call; its plain twin {plain_msg:.4f} ms")
 
     # ---- phase 12: kernel F against its twin and against A then B -----------
     sigma36 = sigma_for(cfg, 3.6)
@@ -1970,7 +1995,8 @@ def main():
     r_counts = counts()
     rout = {k: v.tolist() for k, v in rout.items()}
     print(f"main path with codewords, 3.6 dB: {json.dumps(rout)} launches {r_counts}")
-    check(r_counts["F"] > 0 and r_counts["A"] == r_counts["B"] == 0,
+    check(r_counts["F"] > 0 and r_counts["A"] == r_counts["B"] == 0
+          and r_counts["M"] == FER_ROUNDS,
           f"the codeword path launched kernels {r_counts}")
     print("the reference's FAID_DTBF 3.6 dB group row below is an all-zero-word "
           "row, a different workload from these real codewords (no codeword row "
@@ -2012,7 +2038,9 @@ def main():
         check(rc == 0, f"the codeword campaign returned {rc}")
         print(f"CLI sweep with codewords 3.6-3.7 dB: launches {rc_counts}")
         check(all(rc_counts[k] > 0 for k in ("F", "C", "D", "emit"))
-              and rc_counts["A"] == rc_counts["B"] == 0,
+              and rc_counts["A"] == rc_counts["B"] == 0
+              # one message draw a round, and one a replayed round
+              and rc_counts["M"] == rc_counts["F"] + rc_counts["emit"],
               f"the codeword campaign did not launch F, C and D: {rc_counts}")
         table = (outdir / "Result.txt").read_text().splitlines()
         print("\n".join("  " + r for r in table))
@@ -2024,7 +2052,9 @@ def main():
         check(len(dumped) >= 1, "the codeword campaign dumped no failing frame")
         reset_counts()
         check(cli.main(argv) == 0, "the resumed codeword campaign failed")
-        check(counts()["F"] == 0, "the codeword rerun did not resume")
+        again = counts()
+        check(again["F"] == 0 and again["M"] == again["emit"],
+              f"the codeword rerun did not resume: {again}")
         check([r.split()[:7] for r in (outdir / "Result.txt").read_text().splitlines()]
               == [r.split()[:7] for r in table], "the resumed Result.txt differs")
     tag, pos = dumped[0].split(" : ")
@@ -2069,7 +2099,8 @@ def main():
         print(f"CLI frame mode with codewords, 3.6 dB: launches {fr_counts}")
         print("\n".join("  " + r for r in
                         (outdir / "Result.txt").read_text().splitlines()))
-        check(fr_counts["F"] > 0 and fr_counts["D"] > 0,
+        check(fr_counts["F"] > 0 and fr_counts["D"] > 0
+              and fr_counts["M"] == fr_counts["F"] + fr_counts["emit"],
               f"the frame-mode campaign launched {fr_counts}")
         # the codeword row: docs/channel_parity.json, QPSK 3.6 dB, FAID_DTBF,
         # real codewords, frame mode, the quantile channel
@@ -2096,6 +2127,7 @@ def main():
     g = qam_and_float_chain(code, toy, dev, card, encode, toy_encode, reset_counts,
                             counts)
     bounds["G"] = g["bound"]
+    bounds["M"] = bounds_m
     cov = decoder_coverage(code, toy, dev, card, reset_counts, counts)
     err_b, err_d, err_e = (max(err_b, cov["B"]), max(err_d, cov["D"]),
                            max(err_e, cov["E"]))
@@ -2135,6 +2167,9 @@ def main():
         entry("quantile_channel_qam", "G", "faid_tpu_torch/csrc/qam_channel.cu",
               "faid_tpu/ops/pallas_channel.py:659", g["launches"], g["err"],
               g["ms"], g["plain_ms"]),
+        entry("message_stream", "M", "faid_tpu_torch/csrc/message_stream.cu",
+              "faid_tpu/sim/pipeline.py:35", r_counts["M"], msg_diff, msg_dev,
+              plain_msg),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,14 @@ kernel in ``csrc/``, built with nvcc at first use:
   G  16/64/256-QAM quantile channel +      ops/cuda_channel.py  (sweep and
      ModCalErr map                                              replay)
 
+and, a kernel with no TPU counterpart, the message stream of a round
+with real codewords (ops/philox.py ``message_bits``, one launch of
+csrc/message_stream.cu a round; the JAX package draws its messages
+inside its jitted round).
+
 The float channel chain (``channel_backend="xla"``, the default: modem,
 AWGN on the noise stream of ops/philox.py, quantizer) is plain PyTorch,
-ops/channel.py.  Real codewords come from the message stream (ops/philox.py) through the
+ops/channel.py.  Real codewords come from the message stream through the
 encoder (code/encoder.py), a PyTorch int8 matrix product.
 
 It imports torch and numpy, never JAX.  Entry points run on ``cuda``

@@ -1,10 +1,15 @@
 // Philox4x32-10 counter-based generator (Random123; Salmon et al., SC'11).
 //
-// The device half of the channel's stream contract, written out in
-// faid_tpu_torch/ops/philox.py: the word for (seed, round, frame, bit) is
-// word[bit % 4] of philox4x32_10((bit / 4, frame, round_lo, round_hi),
-// (seed_lo, seed_hi)).  The plain PyTorch version in ops/philox.py gives
-// the same words bit for bit; chip_smoke.py compares the two on the card.
+// The device half of the stream contract written out in
+// faid_tpu_torch/ops/philox.py, in two of its domains.  The channel's: the
+// word for (seed, round, frame, bit) is word[bit % 4] of
+// philox4x32_10((bit / 4, frame, round_lo, round_hi), (seed_lo, seed_hi))
+// (kernels A, C, F and G).  The message domain's: message bit j of a frame
+// is bit j % 32 of word (j / 32) % 4 of philox4x32_10((2^31 | (j / 128),
+// frame, round_lo, round_hi), (seed_lo, seed_hi)) (message_stream.cu).
+// The plain PyTorch version in ops/philox.py gives the same words bit for
+// bit; chip_smoke.py and tests/test_torch_message_stream.py compare the
+// two on the card.
 #pragma once
 
 #include <cstdint>

@@ -6,7 +6,11 @@ Replaces the TPU kernels' hardware PRNG (``pltpu.prng_random_bits``) and
 the portable threefry draws of ``faid_tpu.ops.pallas_channel``.  Neither
 can be reproduced here, so the port defines its own stream and owns both
 implementations of it: this plain-torch one, and the CUDA one in
-``csrc/philox.cuh``, which must give the same words bit for bit.
+``csrc/philox.cuh``, which must give the same words bit for bit.  The
+device half covers the channel's domain (kernels A, C, F, G) and the
+message domain (``csrc/message_stream.cu``, which ``message_bits``
+launches on a CUDA device); the float chain's noise is plain torch on
+every device.
 
 Stream contract
 ---------------
@@ -39,7 +43,9 @@ counter word 0 set (the channel's ``bit // 4`` stays below 2^31):
   bit j   = (w[(j // 32) mod 4] >> (j mod 32)) & 1
 
 so a replay regenerates any round's messages, and the channel's words
-are the same with or without them.
+are the same with or without them.  ``message_bits_plain`` is the
+contract's plain twin; on a CUDA device ``message_bits`` writes the same
+bits with one kernel launch.
 
 The QAM quantile channel (kernel G, ops/cuda_channel.py
 ``quantile_channel_qam``) draws one word per I/Q rail, in the channel's
@@ -79,6 +85,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import kernels
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57        # round multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
@@ -155,13 +163,11 @@ def channel_words(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
     return _as_int32(w.reshape(batch, groups * 4)[:, :n_bits])
 
 
-def message_bits(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
-                 device) -> torch.Tensor:
-    """[batch, n_bits] int8 0/1: the message bits of frames ``frame0 ..
-    frame0 + batch - 1`` of round ``rnd``, 128 bits per Philox call."""
-    calls = -(-n_bits // 128)
-    if calls > _MESSAGE_DOMAIN:
-        raise ValueError(f"{n_bits} message bits exceed the stream's domain")
+def message_bits_plain(seed: int, rnd: int, frame0: int, batch: int,
+                       n_bits: int, device) -> torch.Tensor:
+    """Plain PyTorch twin of the message stream's kernel, on ``device``:
+    the contract's message domain as int64 tensor ops."""
+    calls = _message_calls(n_bits)
     w = _as_int32(_words(seed, rnd, frame0, batch, _MESSAGE_DOMAIN | torch.arange(
         calls, dtype=torch.int64, device=device)))
     # bit j of word k is bit j % 8 of the word's little-endian byte j // 8,
@@ -170,6 +176,47 @@ def message_bits(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
     shifts = torch.arange(8, dtype=torch.uint8, device=device)
     bits = (octets[..., None] >> shifts) & 1     # [batch, calls, 16, 8]
     return bits.reshape(batch, calls * 128)[:, :n_bits].to(torch.int8)
+
+
+def _message_calls(n_bits: int) -> int:
+    """The Philox calls of a frame's ``n_bits`` message bits, 128 a call."""
+    calls = -(-n_bits // 128)
+    if calls > _MESSAGE_DOMAIN:
+        raise ValueError(f"{n_bits} message bits exceed the stream's domain")
+    return calls
+
+
+def message_bits(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
+                 device) -> torch.Tensor:
+    """[batch, n_bits] int8 0/1: the message bits of frames ``frame0 ..
+    frame0 + batch - 1`` of round ``rnd``, 128 bits per Philox call.
+
+    On a CUDA device one launch of csrc/message_stream.cu writes them on
+    the current stream, with every scalar a kernel argument (no copy to
+    the device, no wait for it); on the CPU the plain twin
+    ``message_bits_plain`` computes the same bits."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return message_bits_plain(seed, rnd, frame0, batch, n_bits, device)
+    if device.type != "cuda":
+        raise ValueError(f"no message stream for device {device}")
+    check_stream_args(seed, rnd, frame0, batch)
+    _message_calls(n_bits)
+    out = torch.empty((batch, n_bits), dtype=torch.int8, device=device)
+    if not out.numel():
+        return out
+    with torch.cuda.device(out.device):
+        # the raw handle of the current stream, as torch's generated
+        # kernels take it: no Stream object a call
+        status = kernels.library().faid_message_bits(
+            out.data_ptr(), batch, n_bits, seed, rnd, frame0,
+            torch._C._cuda_getCurrentRawStream(out.device.index))
+    message_bits.launches += 1
+    kernels.check(status)
+    return out
+
+
+message_bits.launches = 0
 
 
 def normal_from_words(w: torch.Tensor) -> torch.Tensor:

@@ -44,11 +44,12 @@ def kernel_wrappers() -> dict:
     from ..ops import cuda_channel as cc
     from ..ops import cuda_decoder as cd
     from ..ops import cuda_sim as cs
+    from ..ops import philox
 
     return {"A": cc.quantile_channel, "B": cd.stats_decode,
             "C": cc.quantile_channel_map, "D": cd.full_decode, "E": cd.mp_decode,
             "F": cs.fused_sim, "emit": cs.fused_sim_emit,
-            "G": cc.quantile_channel_qam}
+            "G": cc.quantile_channel_qam, "M": philox.message_bits}
 
 
 def launch_counts() -> dict[str, int]:

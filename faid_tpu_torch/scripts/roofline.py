@@ -385,7 +385,7 @@ def stage_work(code, device, batch: int, snr: float, max_iter: int, seed: int):
     stages = {
         "message stream": (lambda: philox.message_bits(seed, 5, 0, B, n_info, device),
                            B * n_info, B * n_info * MESSAGE_OPS_PER_BIT + PHILOX_KEY_OPS,
-                           i32, "philox.message_bits (plain torch)"),
+                           i32, "the message stream's kernel (csrc/message_stream.cu)"),
         "encoder": (lambda: encode(u), B * n_info + code.n_chk * n_info + B * n,
                     2 * B * n_info * code.n_chk, PEAK_INT8_OPS_PER_S,
                     "code/encoder.py: torch._int_mm + parity (a library call)"),

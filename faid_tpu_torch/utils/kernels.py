@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "faid_tpu_torch"
 SOURCES = ("quantile_channel.cu", "stats_decoder.cu", "full_decoder.cu",
            "mp_decoder.cu", "fused_sim.cu", "qam_channel.cu", "decoder_nms.cu",
            "decoder_oms_selective.cu", "decoder_oms_offset.cu", "decoder_faid.cu",
-           "decoder_faid_ef1.cu", "decoder_faid_ef2.cu")
+           "decoder_faid_ef1.cu", "decoder_faid_ef2.cu", "message_stream.cu")
 HEADERS = ("philox.cuh", "staircase.cuh", "decoder.cuh", "decoder_entry.cuh",
            "style_kernels.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,6 +73,8 @@ _SIGNATURES = {
     "faid_fused_sim": (
         [_I] * 4 + [_P] * 7 + [_I] * 4
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _ARGS, _I, _P, _P], _I),
+    "faid_message_bits": (
+        [_P, _I, _I, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
     "faid_error_string": ([_I], ctypes.c_char_p),
 }
 
