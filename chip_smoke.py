@@ -148,7 +148,15 @@ chain's parts, and of the QAM rounds on both channels, and G's bound;
      of the whole, and held to docs/floor_group.json; (d) roofline at
      batch 2048, every stage present with its share <= 1.05; (e)
      backend_parity at batch 128, two words: the six methods' kernels D
-     and E equal to their plain twin.
+     and E equal to their plain twin;
+ 25. the BF tail's share of the decoder where tails run: kernel F at the
+     waterfall cell's point (FAID-2B1C, scale 12.5, QPSK, zero word, 3.6
+     dB) and kernel B on the 16-QAM cell's LLRs (kernel G at 7.5 dB, depth
+     2, codewords), each timed in turns against the same launch at a
+     round cap of 0 and at 1 (CUDA events, batch 2048): MP, the tail, its
+     opening and each further round; beside them every tail instance's
+     ptxas registers and spills.  `python3 chip_smoke.py --tail-split`
+     runs the build and this phase alone.
 The bounds, timers and profiles are faid_tpu_torch/scripts/roofline.py's
 (its op model), the z tests and the readers of the JAX package's
 artifacts faid_tpu_torch/scripts/_common.py's.
@@ -1226,11 +1234,91 @@ def scripts_on_card(card, reset_counts, counts):
     print(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 25: where the BF tail's time goes ---------------------------------
+
+def tail_split(code, dev, card, decoders) -> None:
+    """Phase 25: the MP / BF-tail split of the two cells whose decoder runs
+    tails, each launch timed against the same launch with the tail's round
+    cap at 0 (CUDA events, in turns, batch 2048): kernel F on the waterfall
+    cell's point (FAID-2B1C, scale 12.5, QPSK, zero word, 3.6 dB) and
+    kernel B on the 16-QAM cell's LLRs (kernel G at 7.5 dB, depth 2,
+    codewords, FAID+DTBF); beside them the ptxas report of every decoder
+    instance with a tail."""
+    from faid_tpu_torch import sigma_for
+    from faid_tpu_torch.code.encoder import make_encode_fn
+    from faid_tpu_torch.config import DecodeMethod, SimConfig
+    from faid_tpu_torch.ops import cuda_channel as cc
+    from faid_tpu_torch.ops import cuda_decoder as cd
+    from faid_tpu_torch.ops import cuda_sim as cs
+    from faid_tpu_torch.ops import philox, qam_plan
+
+    t_phase = time.perf_counter()
+    for key, r in sorted(decoders.items(), key=str):
+        if key[2] != "none":
+            sp = r.get("spill", (0, 0))
+            print(f"  ptxas, tail instance: kernel {key[0]} {key[1]}/{key[2]} {key[3]} "
+                  f"{key[4]}-bit: {r['regs']} registers, spill stores {sp[0]} B, "
+                  f"loads {sp[1]} B")
+
+    def capped(t, cap):
+        d = t.dcfg
+        return cd.decoder_tables(code, dataclasses.replace(
+            d, bf=dataclasses.replace(d.bf, max_iter=cap)), dev)
+
+    def report(what, run, t, rounds):
+        t0, t1 = capped(t, 0), capped(t, 1)
+        ms_all, ms_mp = in_turns(lambda: run(t), lambda: run(t0), 10, 10)
+        ms_one = cuda_ms(lambda: run(t1), 10)
+        words = rounds.view(-1, 32)[:, 0].float()
+        mean = float(words.mean())
+        per_round = (ms_all - ms_mp) / max(mean, 1e-9)
+        print(f"{what}, batch {BATCH} ({card}), in turns with the tail's cap at 0: "
+              f"{ms_all:.4f} ms, of which MP {ms_mp:.4f} ms and the BF tail "
+              f"{ms_all - ms_mp:.4f} ms ({(ms_all - ms_mp) / ms_all:.1%}); BF rounds a "
+              f"word: mean {mean:.2f}, max {int(words.max())}; the tail "
+              f"{per_round:.4f} ms a round of the mean word; at a cap of 1 "
+              f"{ms_one:.4f} ms (the tail's opening and first round "
+              f"{ms_one - ms_mp:.4f} ms, each further round "
+              f"{(ms_all - ms_one) / max(mean - 1, 1e-9):.4f} ms)")
+
+    # kernel F, the waterfall cell's point
+    wcfg = SimConfig(decode_method=DecodeMethod.FAID_2B1C, max_iteration=6, mod_type=2,
+                     quant_bits=4, scale=12.5, batch_per_device=BATCH, fake_encode=True,
+                     channel_backend="fused", stop_mode="group", seed=SEED)
+    wt = cd.decoder_tables(code, wcfg.decoder(), dev)
+    params = cc.threshold_ints(wcfg, sigma_for(wcfg, 3.6)).to(dev)
+    kw = dict(seed=SEED, rnd=25, batch=BATCH, mod_type=2, quant_bits=4)
+    out = cs.fused_sim(params, wt, **kw)
+    report("phase 25: kernel F, FAID-2B1C at 3.6 dB, scale 12.5, zero word",
+           lambda t: cs.fused_sim(params, t, **kw), wt, out["bf_rounds"])
+
+    # kernel B, the 16-QAM cell's LLRs
+    qcfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6, mod_type=4,
+                     interleave_depth=2, quant_bits=4, scale=13.0, batch_per_device=BATCH,
+                     fake_encode=False, channel_backend="fused", stop_mode="group",
+                     seed=SEED)
+    cw = make_encode_fn(code, dev)(philox.message_bits(SEED, 25, 0, BATCH, code.n_info, dev))
+    qparams = qam_plan.plan_threshold_ints(qcfg, sigma_for(qcfg, 7.5)).to(dev)
+    llr, _ = cc.quantile_channel_qam(
+        cc.qam_tables(qparams, 4, 4, 13.0), seed=SEED, rnd=25, batch=BATCH,
+        n_var=code.n_var, mod_type=4, depth=2, quant_bits=4, scale=13.0, cw=cw)
+    qt = cd.decoder_tables(code, qcfg.decoder(), dev)
+    err, _, rounds = cd.stats_decode(llr, qt, cw)
+    print(f"phase 25: 16-QAM at 7.5 dB, frames in error {int((err > 0).sum())} of {BATCH}, "
+          f"words with a tail {int((rounds.view(-1, 32)[:, 0] > 0).sum())} of {BATCH // 32}")
+    report("phase 25: kernel B, FAID+DTBF on kernel G's 16-QAM LLRs at 7.5 dB, codewords",
+           lambda t: cd.stats_decode(llr, t, cw), qt, rounds)
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
-    # --coverage-only: the build, its ptxas report and phase 21 alone
-    coverage_only = sys.argv[1:] == ["--coverage-only"]
-    if sys.argv[1:] and not coverage_only:
-        fail(f"unknown arguments {sys.argv[1:]}: none, or --coverage-only")
+    # --coverage-only: the build, its ptxas report and phase 21 alone;
+    # --tail-split: the build, its ptxas report and phase 25 alone
+    args = sys.argv[1:]
+    coverage_only = "--coverage-only" in args
+    split_only = "--tail-split" in args
+    if any(a not in ("--coverage-only", "--tail-split") for a in args):
+        fail(f"unknown arguments {args}: none, --coverage-only or --tail-split")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     try:
@@ -1287,9 +1375,12 @@ def main():
           f"{cd.STATIC_SMEM} B")
 
     code = load_code("50gpon")
-    if coverage_only:
-        decoder_coverage(code, toy_code(), dev, card, reset_counts, counts)
-        print("coverage-only run: every check passed")
+    if coverage_only or split_only:
+        if split_only:
+            tail_split(code, dev, card, decoders)
+        if coverage_only:
+            decoder_coverage(code, toy_code(), dev, card, reset_counts, counts)
+        print(f"{' and '.join(args)} run: every check passed")
         return
     cfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6,
                     mod_type=2, quant_bits=4, scale=13.0,
@@ -2133,6 +2224,7 @@ def main():
                            max(err_e, cov["E"]))
     sharded_path(code, cfg, card, campaign, mbit_s, mbit_r)
     scripts_on_card(card, reset_counts, counts)
+    tail_split(code, dev, card, decoders)
 
     def entry(name, key, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": source,

@@ -96,8 +96,12 @@
 //    row's words of one zz side by side (an odd count of words, so a
 //    warp's loads and stores hit 32 banks): 3 loads and 3 stores per
 //    (row, zz) at 4 bits, owned by the thread of that (frame, zz);
-//  * after MP the message region holds the BF tail's bits: one byte per
-//    VN, bit 0 the hard decision, bit 1 the 2B1C reliability bit;
+//  * after MP the message region holds the BF tail's state (bf_tail): a
+//    byte per VN (the hard decision, the 2B1C reliability bit, the post-MP
+//    decision), a copy of the check map for the round's flips to toggle,
+//    and the vote tables.  The tail sweeps the checks once and then keeps
+//    the map and each frame's count up to date by the flips, so a round
+//    reads only the voting columns' checks, in shared memory;
 //  * code tables are runtime arguments (row pointers, entry columns and
 //    shifts, the message offsets, the voting columns' adjacency, the LUT
 //    rows), so the same kernel also runs a toy code; kMaxDeg bounds the
@@ -107,7 +111,10 @@
 // GPC, and 15 fit at once, so 64 words run in 5 waves on 120 SMs; a
 // barrier a row and shared-memory latency within the row; a sweep that
 // finds the word clean re-reads every edge; kernel F's prologue draws on
-// those 120 SMs too.
+// those 120 SMs too.  Where tails run (FAID-2B1C at 3.6 dB, ~10 rounds a
+// word), MP is still ~88% of F's time: a tail round takes ~0.05 ms of a
+// batch of 2048 frames, its opening sweep ~0.03 ms once (chip_smoke.py
+// phase 25).
 // All arithmetic is int32 with the reference's int8 saturations kept
 // explicit; there is no floating point in the kernel.
 #pragma once
@@ -204,6 +211,22 @@ __host__ __device__ inline size_t en_bytes(int frames, int n_var) {
 __host__ __device__ inline size_t smem_bytes(int frames, const CodeArgs& a, bool map) {
   return en_bytes(frames, a.n_var) + static_cast<size_t>(frames) * a.msg_words * 4 +
          (map ? static_cast<size_t>(frames) * a.n_rows * a.z : 0);
+}
+
+// The BF tail's layout in the message region (bytes from its start): the
+// hard bits [frames][n_var], then the check map the flips toggle
+// [frames][n_rows * z], then the vote tables, column bases [n_vote],
+// adjacency pointers [n_vote + 1] and entries (at most n_entries), a word
+// each.  launch() checks that the region holds it; ops/cuda_decoder.py
+// `launch_plan` sizes the region so.
+__host__ __device__ inline size_t tail_map_off(int frames, const CodeArgs& a) {
+  return en_bytes(frames, a.n_var);
+}
+__host__ __device__ inline size_t tail_tab_off(int frames, const CodeArgs& a) {
+  return tail_map_off(frames, a) + en_bytes(frames, a.n_rows * a.z);
+}
+__host__ __device__ inline size_t tail_bytes(int frames, const CodeArgs& a) {
+  return tail_tab_off(frames, a) + 4 * (2 * static_cast<size_t>(a.n_vote) + 1 + a.n_entries);
 }
 
 __device__ __forceinline__ int wrap(int i, int z) { return i >= z ? i - z : i; }
@@ -471,15 +494,6 @@ __device__ void row_update(int8_t* en, uint32_t* msg, const int* s_lut, const in
   }
 }
 
-// Votes of the voting column k, bit zz, from one frame's check map.
-__device__ __forceinline__ int col_votes(const uint8_t* uf, int k, int zz, const CodeArgs& a) {
-  const int z = a.z;
-  int votes = 0;
-  for (int j = a.vote_ptr[k]; j < a.vote_ptr[k + 1]; ++j)
-    votes += uf[a.vote_row[j] * z + wrap(zz - a.vote_shift[j] + z, z)];
-  return votes;
-}
-
 // The block's LLRs into en, the punctured tail zeroed; 16 bytes at a
 // time where the rows allow it.
 template <int kF>
@@ -552,6 +566,252 @@ __device__ inline void channel_ingest(int8_t* en, const int8_t* cw, size_t frame
   }
 }
 
+// Each thread's per-frame values v[f] summed over the warp (their maximum
+// with kMax) and added into s[f] (maxed, where above 1) by one shared
+// atomic a warp and frame.  Every thread of the block calls it, converged.
+template <int kF, bool kMax = false>
+__device__ __forceinline__ void warp_flush(const int (&v)[kF], int* s) {
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    const int t = kMax ? __reduce_max_sync(0xffffffffu, v[f]) : __reduce_add_sync(0xffffffffu, v[f]);
+    if ((threadIdx.x & 31) == 0 && (kMax ? t > 1 : t != 0)) {
+      if (kMax) atomicMax(&s[f], t);
+      else atomicAdd(&s[f], t);
+    }
+  }
+}
+
+// The BF tail (faid_tpu/decoders/bf.py): static BF, DTBF or 2B1C-DTBF on
+// the decisions en > 0, at most bf_max_iter rounds, each opened by the
+// stop decision of the word (group mode) or of each frame (frame mode).
+// Returns the rounds (frame mode: thread f < kF, frame f's).  Its state
+// lies in the message region, free after MP (tail_bytes): hard[v], bit 0
+// the decision, bit 1 the 2B1C reliability bit, bit 3 the post-MP
+// decision (DTBF's hard_ch); the check map the flips toggle (tmap); the
+// vote tables.
+//
+// The check map is kept up to date by the flips, not swept each round:
+// one opening sweep makes each frame's map (unsat) and count (s_cnt) from
+// the post-MP bits; after it, a VN whose decision flips toggles the map
+// entries of its checks, which are the entries its votes read (vote_ptr,
+// vote_row, vote_shift; every column for static BF), and adds +-1 to its
+// frame's count.  Every vote of a round reads the map of the round's top:
+// the flips toggle tmap, a copy, which after the round's barrier is
+// copied back over unsat.  A 2B1C demote keeps bit 0 and toggles nothing.
+// So the map stays the parity of the hard bits, and the stop decisions
+// and frame mode's flags read the counts.
+//
+// A round reads shared memory only: the vote tables are copied there once
+// a tail, (column * z) and (row * z | (z - shift) << 16) to a word.  No
+// item divides: thread t takes bit zz = t % z of the columns k = t / z,
+// t / z + P, ... (P = kThreads / z columns a step; threads from P * z on
+// idle), each column's table entries read once for the block's kF frames
+// (the opening sweep likewise takes rows).  The flip flags and count
+// changes are reduced in the warp before one shared atomic a warp.  The
+// threshold machines (thread f < kF, frame f's, in registers) run for the
+// next round after each round's barrier, before its stop decision: a
+// round the decision ends never reads them, so a round costs one block
+// barrier besides the decision's.  Frame mode: s_act marks the frames
+// dirty at the round's top; only they flip and run their machines.
+template <int kBf, bool kFrame, int kF, int kCl>
+__device__ inline int bf_tail(const int8_t* en, uint8_t* hard, uint8_t* unsat, int* s_cnt,
+                              int* s_act, int* s_or, int& slot, const CodeArgs& a) {
+  __shared__ int s_th[kF], s_flip[kF];
+  const int z = a.z, n = a.n_var, per_frame = a.n_rows * z;
+  for (int i = threadIdx.x; i < kF * n; i += kThreads) {
+    const int v = en[i];
+    int h = v > 0 ? 9 : 0;   // bits 0 and 3
+    if constexpr (kBf == kBf2b1c) h |= (v >= a.reliability || v <= -a.reliability) << 1;
+    hard[i] = static_cast<uint8_t>(h);
+  }
+  if (a.bf_max_iter == 0) {
+    __syncthreads();
+    return 0;
+  }
+  uint8_t* tmap = hard + tail_map_off(kF, a);
+  int* s_vcol = reinterpret_cast<int*>(hard + tail_tab_off(kF, a));
+  int* s_vptr = s_vcol + a.n_vote;
+  int* s_vadj = s_vptr + a.n_vote + 1;
+  for (int i = threadIdx.x; i <= a.n_vote; i += kThreads) {
+    s_vptr[i] = __ldg(a.vote_ptr + i);
+    if (i < a.n_vote) s_vcol[i] = __ldg(a.vote_col + i) * z;
+  }
+  for (int i = threadIdx.x; i < __ldg(a.vote_ptr + a.n_vote); i += kThreads)
+    s_vadj[i] = __ldg(a.vote_row + i) * z | (z - __ldg(a.vote_shift + i)) << 16;
+  if (threadIdx.x < kF) {
+    s_cnt[threadIdx.x] = 0;
+    s_flip[threadIdx.x] = 0;
+  }
+  const int P = kThreads / z, p0 = threadIdx.x / z, zz = threadIdx.x - p0 * z;
+  __syncthreads();
+
+  // the opening sweep: each frame's map, in unsat and tmap, and count
+  {
+    int cnt[kF] = {};
+    for (int r = p0 < P ? p0 : a.n_rows; r < a.n_rows; r += P) {
+      int acc[kF] = {};
+      const int e1 = __ldg(a.row_ptr + r + 1);
+      for (int e = __ldg(a.row_ptr + r); e < e1; ++e) {
+        const int v = vn_index(a, e, zz);
+#pragma unroll
+        for (int f = 0; f < kF; ++f) acc[f] ^= hard[f * n + v];
+      }
+#pragma unroll
+      for (int f = 0; f < kF; ++f) {
+        const int i = f * per_frame + r * z + zz;
+        unsat[i] = tmap[i] = static_cast<uint8_t>(acc[f] & 1);
+        cnt[f] += acc[f] & 1;
+      }
+    }
+    warp_flush<kF>(cnt, s_cnt);
+  }
+  __syncthreads();
+
+  // thread f < kF: frame f's threshold machine, and its flag for the
+  // stop decision (mine)
+  int th = a.gamma, t = 1, l0 = 0, l1 = 0, mine = 0;
+  auto machine = [&]() {
+    if (threadIdx.x >= kF) return;
+    const int f = threadIdx.x;
+    mine = s_cnt[f] > 0;
+    if constexpr (kFrame) s_act[f] = mine;
+    if constexpr (kBf == kBfStatic) {
+      s_th[f] = 1;   // max(each frame's largest vote, 1), below
+    } else if (!kFrame || mine) {
+      // group mode: a round runs only while the word is dirty, so every
+      // frame updates; frame mode: the dirty frames do
+      th = t ? th : th - a.delta;
+      const bool max_th = t && l0 < a.l0_max;
+      if (max_th) {
+        th = a.gamma + a.alpha;
+        ++l0;
+      }
+      const bool submax = t && !max_th && l1 < a.l1_max;
+      if (submax) {
+        th = a.gamma + a.alpha - a.delta;
+        ++l1;
+      }
+      if (t && !max_th && !submax) th = a.gamma + a.alpha - 2 * a.delta;
+      th = max(th, 1);
+      s_th[f] = th;
+    }
+  };
+  machine();
+
+  // the map offset of adjacency entry j's check of bit zz
+  auto check_at = [&](int j) {
+    const int e = s_vadj[j];
+    return (e & 0xffff) + wrap(zz + (e >> 16), z);
+  };
+  // each frame's votes of bit zz of a column (entries j0 .. j1), from the
+  // map of the round's top
+  auto votes_of = [&](int j0, int j1, int (&votes)[kF]) {
+#pragma unroll
+    for (int f = 0; f < kF; ++f) votes[f] = 0;
+    for (int j = j0; j < j1; ++j) {
+      const uint8_t* u = unsat + check_at(j);
+#pragma unroll
+      for (int f = 0; f < kF; ++f) votes[f] += u[f * per_frame];
+    }
+  };
+  // that bit flipped in frame f: toggle its checks in tmap; the count's change
+  auto toggle = [&](int f, int j0, int j1) {
+    int d = 0;
+    for (int j = j0; j < j1; ++j) {
+      const int i = f * per_frame + check_at(j);
+      const uint32_t bit = 1u << 8 * (i & 3);
+      d += atomicXor(reinterpret_cast<uint32_t*>(tmap) + (i >> 2), bit) & bit ? -1 : 1;
+    }
+    return d;
+  };
+  const int k0 = p0 < P ? p0 : a.n_vote;
+  int rounds = 0;
+  for (int round = 0; round < a.bf_max_iter; ++round) {
+    if (!decide<kFrame, kCl>(mine, s_or, slot)) break;
+    if constexpr (kFrame) rounds += mine;
+    else ++rounds;
+    int on[kF], thr[kF], dcnt[kF] = {};
+#pragma unroll
+    for (int f = 0; f < kF; ++f) on[f] = !kFrame || s_act[f];
+    if constexpr (kBf == kBfStatic) {
+      // the threshold: min(max(each frame's largest vote, 1), cap)
+      int mx[kF] = {};
+      for (int k = k0; k < a.n_vote; k += P) {
+        int votes[kF];
+        votes_of(s_vptr[k], s_vptr[k + 1], votes);
+#pragma unroll
+        for (int f = 0; f < kF; ++f) mx[f] = on[f] ? max(mx[f], votes[f]) : mx[f];
+      }
+      warp_flush<kF, true>(mx, s_th);
+      __syncthreads();
+#pragma unroll
+      for (int f = 0; f < kF; ++f) thr[f] = min(s_th[f], a.vote_cap);
+      // flip every VN whose vote reaches it
+      for (int k = k0; k < a.n_vote; k += P) {
+        const int j0 = s_vptr[k], j1 = s_vptr[k + 1], col = s_vcol[k] + zz;
+        int votes[kF];
+        votes_of(j0, j1, votes);
+#pragma unroll
+        for (int f = 0; f < kF; ++f) {
+          if (on[f] && votes[f] >= thr[f]) {
+            hard[f * n + col] ^= 1;
+            dcnt[f] += toggle(f, j0, j1);
+          }
+        }
+      }
+      warp_flush<kF>(dcnt, s_cnt);
+    } else {
+#pragma unroll
+      for (int f = 0; f < kF; ++f) thr[f] = s_th[f];
+      // flip weight-gamma VNs with votes + alpha * (hard != hard_ch) >= Th
+      int flipped = 0;
+      for (int k = k0; k < a.n_vote; k += P) {
+        const int j0 = s_vptr[k], j1 = s_vptr[k + 1], col = s_vcol[k] + zz;
+        int votes[kF];
+        votes_of(j0, j1, votes);
+#pragma unroll
+        for (int f = 0; f < kF; ++f) {
+          const int v = f * n + col, hv = hard[v];
+          if (on[f] && votes[f] + a.alpha * ((hv ^ hv >> 3) & 1) >= thr[f]) {
+            int nv = hv ^ 1;
+            if constexpr (kBf == kBf2b1c) {
+              // below a threshold of gamma a reliable bit is demoted
+              // instead of flipped
+              if (thr[f] >= a.gamma) nv = hv ^ 3;
+              else if (hv & 2) nv = hv ^ 2;
+            }
+            hard[v] = static_cast<uint8_t>(nv);
+            flipped |= 1 << f;
+            if ((nv ^ hv) & 1) dcnt[f] += toggle(f, j0, j1);
+          }
+        }
+      }
+      flipped = __reduce_or_sync(0xffffffffu, flipped);
+      if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+        for (int f = 0; f < kF; ++f)
+          if (flipped >> f & 1) s_flip[f] = 1;
+      }
+      warp_flush<kF>(dcnt, s_cnt);
+    }
+    __syncthreads();
+    // the round's toggles into the map its successor's votes read (the
+    // next stop decision's barrier orders them before those reads)
+    const int words = kF * per_frame / 4;
+    for (int w = threadIdx.x; w < words; w += kThreads)
+      reinterpret_cast<uint32_t*>(unsat)[w] = reinterpret_cast<const uint32_t*>(tmap)[w];
+    for (int i = 4 * words + threadIdx.x; i < kF * per_frame; i += kThreads) unsat[i] = tmap[i];
+    if constexpr (kBf != kBfStatic) {
+      if (threadIdx.x < kF) {
+        if (!kFrame || mine) t = s_flip[threadIdx.x];
+        s_flip[threadIdx.x] = 0;
+      }
+    }
+    machine();
+  }
+  return rounds;
+}
+
 // The buffers are separate __restrict__ parameters, and the row update
 // keeps its contributions packed: scripts/decoder_variants.py measured
 // both to matter when the state lived in global memory.
@@ -566,8 +826,7 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int s_lut[8], s_lut_ef[8];
   __shared__ int s_cnt[kF], s_lme[kF];
-  __shared__ int s_th[kF], s_l0[kF], s_l1[kF], s_t[kF];
-  __shared__ int s_flip[kF], s_err[kF];
+  __shared__ int s_err[kF];
   __shared__ int s_act[kF], s_dirty[kF];   // frame mode
   __shared__ int s_or[3];                  // group mode: cluster_or's slots
 
@@ -644,131 +903,12 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
     else ++iters;
   }
 
-  // ---- BF tail, skipped when MP stopped clean.  Its bits live in the
-  // message region, free after MP: hard[v] bit 0 the decision, bit 1
-  // the 2B1C reliability bit.  Frame mode: s_act marks the frames found
-  // dirty at the round's top; only they flip and run their threshold
-  // machines, and thread f < kF counts frame f's rounds.
+  // ---- BF tail, skipped when MP stopped clean (bf_tail).  Its bits live
+  // in the message region, free after MP.
   uint8_t* hard = reinterpret_cast<uint8_t*>(msg);   // [kF][n]
   int rounds = 0;
   if constexpr (kBf != kBfNone) {
-    if (alive) {
-      for (int i = threadIdx.x; i < kF * n; i += kThreads) {
-        const int v = en[i];
-        int h = v > 0;
-        if constexpr (kBf == kBf2b1c) h |= (v >= a.reliability || v <= -a.reliability) << 1;
-        hard[i] = static_cast<uint8_t>(h);
-      }
-      if (threadIdx.x < kF) {
-        s_th[threadIdx.x] = a.gamma;
-        s_l0[threadIdx.x] = 0;
-        s_l1[threadIdx.x] = 0;
-        s_t[threadIdx.x] = 1;
-        if constexpr (kFrame) s_act[threadIdx.x] = 1;
-      }
-      __syncthreads();
-      const int per_frame = a.n_rows * z;
-      const int n_items = kF * a.n_vote * z;
-      for (int round = 0; round < a.bf_max_iter; ++round) {
-        if constexpr (kFrame) {
-          if (threadIdx.x < kF) s_dirty[threadIdx.x] = 0;
-          __syncthreads();
-        }
-        int found = 0;
-        for (int i = threadIdx.x; i < kF * per_frame; i += kThreads) {
-          const int f = i / per_frame, j = i - f * per_frame, r = j / z;
-          // a frame clean at an earlier round no longer flips: it stays clean
-          if (kFrame && !s_act[f]) continue;
-          const uint8_t* hf = hard + f * n;
-          const int acc = check_parity(a, r, j - r * z, [&](int v) { return hf[v] & 1; });
-          unsat[i] = static_cast<uint8_t>(acc);
-          found |= acc;
-          if (kFrame && acc) static_cast<volatile int*>(s_dirty)[f] = 1;
-        }
-        if (!decide<kFrame, kCl>(found, s_or, slot)) break;
-        if constexpr (kFrame) {
-          if (threadIdx.x < kF) {
-            s_act[threadIdx.x] = s_dirty[threadIdx.x];
-            rounds += s_dirty[threadIdx.x];
-          }
-          __syncthreads();
-        } else {
-          ++rounds;
-        }
-        if constexpr (kBf == kBfStatic) {
-          // the threshold: min(max(each frame's largest vote, 1), cap)
-          if (threadIdx.x < kF) s_th[threadIdx.x] = 1;
-          __syncthreads();
-          for (int f = 0; f < kF; ++f) {
-            if (kFrame && !s_act[f]) continue;
-            int mx = 0;
-            for (int j = threadIdx.x; j < a.n_vote * z; j += kThreads)
-              mx = max(mx, col_votes(unsat + f * per_frame, j / z, j % z, a));
-            mx = __reduce_max_sync(0xffffffffu, mx);
-            if ((threadIdx.x & 31) == 0 && mx > 1) atomicMax(&s_th[f], mx);
-          }
-          __syncthreads();
-          if (threadIdx.x < kF) s_th[threadIdx.x] = min(s_th[threadIdx.x], a.vote_cap);
-          __syncthreads();
-          // flip every VN whose vote reaches it
-          for (int i = threadIdx.x; i < n_items; i += kThreads) {
-            const int zz = i % z, rest = i / z;
-            const int k = rest % a.n_vote, f = rest / a.n_vote;
-            if (kFrame && !s_act[f]) continue;
-            if (col_votes(unsat + f * per_frame, k, zz, a) >= s_th[f])
-              hard[f * n + a.vote_col[k] * z + zz] ^= 1;
-          }
-          __syncthreads();
-        } else {
-          // threshold machine; group mode: the word is dirty, so every
-          // frame updates; frame mode: the dirty frames do
-          if (threadIdx.x < kF && (!kFrame || s_act[threadIdx.x])) {
-            const int f = threadIdx.x, t = s_t[f];
-            int th = t ? s_th[f] : s_th[f] - a.delta;
-            const bool max_th = t && s_l0[f] < a.l0_max;
-            if (max_th) {
-              th = a.gamma + a.alpha;
-              ++s_l0[f];
-            }
-            const bool submax = t && !max_th && s_l1[f] < a.l1_max;
-            if (submax) {
-              th = a.gamma + a.alpha - a.delta;
-              ++s_l1[f];
-            }
-            if (t && !max_th && !submax) th = a.gamma + a.alpha - 2 * a.delta;
-            s_th[f] = max(th, 1);
-          }
-          if (threadIdx.x < kF) s_flip[threadIdx.x] = 0;
-          __syncthreads();
-          // flip weight-gamma VNs with votes + alpha * (hard != hard_ch) >= Th
-          for (int i = threadIdx.x; i < n_items; i += kThreads) {
-            const int zz = i % z, rest = i / z;
-            const int k = rest % a.n_vote, f = rest / a.n_vote;
-            if (kFrame && !s_act[f]) continue;
-            const int votes = col_votes(unsat + f * per_frame, k, zz, a);
-            const int v = f * n + a.vote_col[k] * z + zz;
-            const int hv = hard[v], h = hv & 1;
-            const int h_ch = en[v] > 0;   // hard_ch: the post-MP decision
-            if (votes + a.alpha * (h ^ h_ch) >= s_th[f]) {
-              if constexpr (kBf == kBf2b1c) {
-                // below a threshold of gamma a reliable bit is demoted
-                // instead of flipped
-                if (s_th[f] >= a.gamma) hard[v] = static_cast<uint8_t>(hv ^ 3);
-                else if (hv & 2) hard[v] = static_cast<uint8_t>(h);
-                else hard[v] = static_cast<uint8_t>(hv ^ 1);
-              } else {
-                hard[v] = static_cast<uint8_t>(hv ^ 1);
-              }
-              atomicOr(&s_flip[f], 1);
-            }
-          }
-          __syncthreads();
-          if (threadIdx.x < kF && (!kFrame || s_act[threadIdx.x]))
-            s_t[threadIdx.x] = s_flip[threadIdx.x];
-          __syncthreads();
-        }
-      }
-    }
+    if (alive) rounds = bf_tail<kBf, kFrame, kF, kCl>(en, hard, unsat, s_cnt, s_act, s_or, slot, a);
   }
 
   // the decisions: the BF tail's bits where it ran, else en > 0
@@ -822,6 +962,11 @@ int launch(const Buffers& b, const CodeArgs& a, const ChanArgs& c, int batch, vo
   const size_t smem = smem_bytes(kF, a, kKeepsMap<kStyle> || kBf != kBfNone);
   if (kOut == kSim && 2 * c.L + 1 > kMaxParams) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || batch % kGroup) return static_cast<int>(cudaErrorInvalidValue);
+  // the tail's walk takes a bit a thread (z <= kThreads), its packed
+  // tables a 16-bit map offset, and its state the message region
+  if (kBf != kBfNone && (a.z > kThreads || a.n_rows * a.z > 0x10000 ||
+                         tail_bytes(kF, a) > static_cast<size_t>(kF) * a.msg_words * 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t st = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         static_cast<int>(smem));
   if (st == cudaSuccess && kCl > 8)

@@ -52,6 +52,7 @@ from ..decoders import luts
 from ..decoders.bf import GROUP   # frames per stop word == per cluster
 
 MAX_DEG = 24     # csrc/decoder.cuh kMaxDeg
+THREADS = 1024   # csrc/decoder.cuh kThreads: the BF tail takes a bit a thread
 SMEM_LIMIT = 232_448   # shared memory one Hopper block can use, bytes
 # what a block's static shared arrays may take beside the plan's dynamic
 # bytes (ptxas reports at most 512 bytes; chip_smoke.py checks it)
@@ -151,11 +152,34 @@ def _row_words(deg: int, bits: int) -> int:
     return -(-deg * bits // 32) | 1
 
 
+def vote_columns(code: QCCode, dcfg: DecoderConfig) -> list:
+    """The block columns the BF tail votes on and flips: every column for
+    static BF, those of weight gamma for DTBF and 2B1C."""
+    weights = code.vn_weight_blocks_np[:, 0]
+    if dcfg.bf.kind == "static":
+        return list(range(code.n_block_cols))
+    return [c for c in range(code.n_block_cols) if weights[c] == dcfg.bf.gamma]
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def tail_bytes(code: QCCode, dcfg: DecoderConfig, frames: int) -> int:
+    """csrc/decoder.cuh ``tail_bytes``: the BF tail's state in the message
+    region of a block of ``frames`` frames: a byte per VN (the hard bits),
+    the check map the flips toggle, a byte per check, and the vote tables
+    (column bases, adjacency pointers, at most ``n_entries`` adjacency
+    entries, a word each)."""
+    return (_round16(frames * code.n_var) + _round16(frames * code.n_block_rows * code.z)
+            + 4 * (2 * len(vote_columns(code, dcfg)) + 1 + int(code.degrees_np.sum())))
+
+
 def launch_plan(code: QCCode, dcfg: DecoderConfig) -> LaunchPlan:
     """The kernels' layout of ``dcfg`` on ``code``: 4-bit messages and 4
     frames a block (clusters of 8) where ``msg_bound`` is at most 7, else
-    8-bit messages and 2 frames a block (clusters of 16).  The message
-    region also holds the BF tail's byte per VN after MP."""
+    8-bit messages and 2 frames a block (clusters of 16).  After MP the
+    message region holds the BF tail's state (``tail_bytes``)."""
     bound = msg_bound(dcfg)
     bits = 4 if bound is not None and bound <= 7 else 8
     frames = 4 if bits == 4 else 2
@@ -163,8 +187,8 @@ def launch_plan(code: QCCode, dcfg: DecoderConfig) -> LaunchPlan:
                                           for d in code.degrees_np])])
     words = int(off[-1])
     has_bf = dcfg.bf.kind != "none"
-    if has_bf:
-        words = max(words, -(-code.n_var // 4))
+    tail = tail_bytes(code, dcfg, frames) if has_bf else 0
+    words = max(words, -(-tail // (4 * frames)))
     # the check map: the BF tail's, and the floor window's and EF 2's votes'
     # (decoder.cuh kKeepsMap)
     keeps_map = has_bf or _style_id(dcfg) in (OMS_SELECTIVE, FAID_EF1, FAID_EF2)
@@ -246,10 +270,7 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
     for r in range(code.n_block_rows):
         for c, s in zip(code.block_cols[r][:deg[r]], code.shifts[r][:deg[r]]):
             adj[c].append((r, s))
-    if dcfg.bf.kind == "static":
-        vote = list(adj)
-    else:
-        vote = [c for c in adj if len(adj[c]) == dcfg.bf.gamma]
+    vote = vote_columns(code, dcfg)
     vote_rs = np.array([rs for c in vote for rs in adj[c]],
                        dtype=np.int32).reshape(-1, 2)
     lut, lut_ef = tables_from_arrays(
@@ -327,6 +348,10 @@ def check_launch(batch: int, tables: DecoderTables) -> None:
     if code.max_deg > MAX_DEG or code.n_var % code.z:
         raise NotImplementedError(
             f"kernel bounds: row degree <= {MAX_DEG}, n_var % z == 0")
+    if code.z > THREADS or code.n_block_rows * code.z > 1 << 16:
+        raise NotImplementedError(
+            f"kernel bounds: z <= {THREADS} (the BF tail walks a bit a thread) and "
+            f"n_rows * z <= 65536 (its tables' 16-bit map offsets); z is {code.z}")
     if not tables.plan.fits:
         raise NotImplementedError(
             f"{tables.plan.frames} frames' decoder state ({tables.plan.smem_bytes} "

@@ -115,7 +115,9 @@ def test_launch_plan(code_name, label, dcfg):
     assert (np.diff(off) % code.z == 0).all() and (words % 2 == 1).all()
     assert (words * 32 >= code.degrees_np * plan.msg_bits).all()
     has_bf = dcfg.bf.kind != "none"
-    assert plan.msg_words == max(off[-1], -(-code.n_var // 4) if has_bf else 0)
+    tail = _tail_bytes(code, dcfg, plan.frames) if has_bf else 0
+    assert tail == (cd.tail_bytes(code, dcfg, plan.frames) if has_bf else 0)
+    assert plan.msg_words == max(off[-1], -(-tail // (4 * plan.frames)))
     keeps_map = has_bf or cd.kernel_ids(dcfg)[0] in (cd.OMS_SELECTIVE, cd.FAID_EF1,
                                                      cd.FAID_EF2)
     assert plan.smem_bytes == (-(-plan.frames * code.n_var // 16) * 16
@@ -126,6 +128,56 @@ def test_launch_plan(code_name, label, dcfg):
         assert plan.smem_bytes == 4 * (17_664 + 36_864 + 3_072 * keeps_map)
     tables = cd.decoder_tables(code, dcfg, "cpu")
     assert tables.plan == plan and tables.msg_off.tolist() == list(plan.msg_off)
+
+
+def _round16(n):
+    return -(-n // 16) * 16
+
+
+def _tail_bytes(code, dcfg, frames):
+    """The BF tail's state, counted from the code: a byte per VN, a byte
+    per check (the map the flips toggle), and the vote tables, a word per
+    voting column, per adjacency pointer and per adjacency entry (at most
+    one per entry of the code)."""
+    cols = np.concatenate([code.block_cols_np[r, :d] for r, d in enumerate(code.degrees_np)])
+    weight = np.bincount(cols, minlength=code.n_block_cols)
+    n_vote = code.n_block_cols if dcfg.bf.kind == "static" else int((weight == dcfg.bf.gamma).sum())
+    return (_round16(frames * code.n_var) + _round16(frames * code.n_block_rows * code.z)
+            + 4 * (2 * n_vote + 1 + len(cols)))
+
+
+@pytest.mark.parametrize("code_name", ["50gpon", "toy"])
+@pytest.mark.parametrize("label,dcfg", [c for c in _configs() if c[1].bf.kind != "none"],
+                         ids=[c[0] for c in _configs() if c[1].bf.kind != "none"])
+def test_tail_state_fits_the_message_region(code_name, label, dcfg):
+    """The BF tail's state after MP (decoder.cuh ``bf_tail``) lies inside
+    the block's message region: the hard bits, then the map the flips
+    toggle, then the tables of the tail's own voting columns, each part
+    16-byte aligned (the map takes word atomics); and the code is one the
+    tail walks (z <= 1024 threads, 16-bit map offsets)."""
+    code = _codes()[code_name]
+    plan = cd.launch_plan(code, dcfg)
+    tables = cd.decoder_tables(code, dcfg, "cpu")
+    frames, region = plan.frames, plan.frames * plan.msg_words * 4
+    map_off = _round16(frames * code.n_var)
+    tab_off = map_off + _round16(frames * code.n_block_rows * code.z)
+    n_vote, n_adj = tables.vote_col.numel(), int(tables.vote_ptr[-1])
+    assert n_vote == len(cd.vote_columns(code, dcfg)) and n_adj <= tables.ent_col.numel()
+    assert tab_off + 4 * (2 * n_vote + 1 + n_adj) <= cd.tail_bytes(code, dcfg, frames) <= region
+    assert map_off % 16 == 0 and tab_off % 16 == 0
+    # the message region after en, whose size is a multiple of 16 bytes
+    assert (region + _round16(frames * code.n_var)) <= plan.smem_bytes
+    assert code.z <= cd.THREADS and code.n_block_rows * code.z <= 1 << 16
+    cd.check_launch(64, tables)
+
+
+def test_wrapper_refuses_z_above_the_threads():
+    """The BF tail takes one bit a thread: a code with z > 1024 is refused
+    before any launch, and z = 1024 is not."""
+    dcfg = DecoderConfig.for_method(DecodeMethod.FAID_DTBF)
+    cd.check_launch(64, cd.decoder_tables(toy_code(z=1024), dcfg, "cpu"))
+    with pytest.raises(NotImplementedError, match="z <= 1024"):
+        cd.check_launch(64, cd.decoder_tables(toy_code(z=2048), dcfg, "cpu"))
 
 
 def test_code_args_match_the_header():
