@@ -133,10 +133,6 @@ chain's parts, and of the QAM rounds on both channels, and G's bound;
      alone writing, its dump (C and D at frame0 1024) phase 7's frame for
      frame under dev d / frame f <-> frame 1024 d + f, the rerun resumed
      on both ranks;
- 23. the bench as a user runs it, `python -m faid_tpu_torch.bench
-     --encode fake` and `--encode random`: the line's keys, its rate
-     within 10% of phase 5's (all-zero word) and phase 15's (codewords)
-     in the same call;
  24. the port's scripts (faid_tpu_torch/scripts/), each ``main(argv)`` in
      this process at full width, writing to a temporary directory: (a)
      fer_validation's six 3.6 dB rows in group mode, each held to its TPU
@@ -934,19 +930,16 @@ def decoder_coverage(code, toy, dev, card, reset_counts, counts) -> dict:
     return err
 
 
-# ---- phases 22-23: the sharded path (parallel/mesh.py) and the bench -------
+# ---- phase 22: the sharded path (parallel/mesh.py) ------------------------
 # the files phase 7's campaign writes, compared with the sharded runs'
 CAMPAIGN_FILES = ("Result.txt", "demod.txt", "iterCount.txt", "errorindex.txt",
                   "errordecode.txt", "errorllr.txt", "errorfloat.txt")
 WORLD_TIMEOUT_S = 300
-# the bench as a user runs it, against phase 5's (fake) and phase 15's
-# (random) rates in the same call
-BENCH_TOLERANCE = 0.10
 
 
-def sharded_path(code, cfg, card, campaign, mbit_zero: float, mbit_codewords: float):
+def sharded_path(code, cfg, card, campaign):
     """Phase 22: the sharded path on the card, in worlds of processes
-    (tests/_torch_dist.py, torch and the port only); phase 23: the bench."""
+    (tests/_torch_dist.py, torch and the port only)."""
     sys.path.insert(0, str(REPO / "tests"))
     import _torch_dist as td
     from faid_tpu_torch import build_sim_loop, sigma_for
@@ -1079,7 +1072,7 @@ def sharded_path(code, cfg, card, campaign, mbit_zero: float, mbit_codewords: fl
                 .splitlines()}
         check(lead["dumped"] > 0 and other["dumped"] == 0 and devs == {"0", "1"},
               f"rank 0 dumped {lead['dumped']} frames of devs {devs}")
-        check(all(lead["replay_launches"][k] > 0 for k in ("C", "D", "emit")),
+        check(all(lead["replay_launches"][k] > 0 for k in ("C", "D")),
               f"the replay launched {lead['replay_launches']}")
         check(lead["resume_calls"] == other["resume_calls"] == 0
               and lead["resume_launches"]["F"] == 0,
@@ -1088,33 +1081,6 @@ def sharded_path(code, cfg, card, campaign, mbit_zero: float, mbit_codewords: fl
               "demod.txt and iterCount.txt equal the world-1 campaign's; the "
               f"dump's dev d frame f is its frame d * {half} + f (devs {sorted(devs)})")
     print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
-
-    # ---- phase 23: the bench as a user runs it ------------------------------
-    t_phase = time.perf_counter()
-    for encode, phase_rate in (("fake", mbit_zero), ("random", mbit_codewords)):
-        p = subprocess.run([sys.executable, "-m", "faid_tpu_torch.bench",
-                            "--encode", encode], cwd=REPO, capture_output=True,
-                           text=True, timeout=WORLD_TIMEOUT_S)
-        check(p.returncode == 0, f"the bench --encode {encode} failed:\n"
-                                 f"{p.stderr[-3000:]}")
-        line = json.loads(p.stdout.strip().splitlines()[-1])
-        print(f"phase 23: python -m faid_tpu_torch.bench --encode {encode} "
-              f"({card}): {json.dumps(line)}\n  {p.stderr.strip()}")
-        check({"metric", "value", "unit", "vs_baseline", "encode",
-               "baseline_same_workload"} <= set(line)
-              and line["unit"] == "Mbit/s" and line["encode"] == encode
-              and line["metric"] != "decoded_info_throughput_faid_dtbf_qpsk_4dB",
-              "the bench's line lacks a key or has the TPU metric's name")
-        check(line["device"]["name"] == torch.cuda.get_device_name(0),
-              "the bench names another device")
-        ratio = line["value"] / phase_rate
-        print(f"  {line['value']} Mbit/s against the in-script rate "
-              f"{phase_rate:.1f} Mbit/s: {ratio:.4f}")
-        check(abs(ratio - 1) <= BENCH_TOLERANCE,
-              f"the bench's {encode} rate is not within "
-              f"{BENCH_TOLERANCE:.0%} of the in-script rate")
-    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
-
 
 
 # ---- phase 24: the port's scripts (faid_tpu_torch/scripts/) on the card -----
@@ -1337,12 +1303,7 @@ def main():
         fail(f"the faid_tpu_torch package is not importable here: {e}")
     check(not any(m.split(".")[0] in ("jax", "faid_tpu") for m in sys.modules),
           "JAX or faid_tpu was imported")
-    wrappers = _common.kernel_wrappers()
-
-    def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
-
+    reset_counts = kernels.launches.clear
     counts = _common.launch_counts
 
     dev = torch.device("cuda:0")
@@ -1581,7 +1542,7 @@ def main():
                     "files": {n: (outdir / n).read_bytes() for n in CAMPAIGN_FILES}}
         print(f"CLI sweep 3.6-3.7 dB: {sweep_s:.3f} s wall, launches "
               f"{cli_counts}")
-        check(all(cli_counts[k] > 0 for k in ("F", "C", "D", "emit"))
+        check(all(cli_counts[k] > 0 for k in ("F", "C", "D"))
               and cli_counts["A"] == cli_counts["B"] == cli_counts["E"] == 0,
               f"the campaign path did not launch F, C and D only: {cli_counts}")
         table = (outdir / "Result.txt").read_text().splitlines()
@@ -1839,7 +1800,7 @@ def main():
         print(f"OMS campaign, 3.6 dB: launches {oms_counts}")
         print("\n".join("  " + r for r in
                         (outdir / "Result.txt").read_text().splitlines()))
-        check(all(oms_counts[k] > 0 for k in ("F", "C", "E", "emit"))
+        check(all(oms_counts[k] > 0 for k in ("F", "C", "E"))
               and oms_counts["A"] == oms_counts["B"] == oms_counts["D"] == 0,
               f"the OMS campaign did not launch F, C and E only: {oms_counts}")
         dumped = (outdir / "errorindex.txt").read_text().splitlines()
@@ -1863,9 +1824,9 @@ def main():
     u_cpu = philox.message_bits(SEED, 5, 0, BATCH, n_info, "cpu")
     cw_cpu = make_encode_fn(code, "cpu")(u_cpu)
     encode = make_encode_fn(code, dev)
-    msg_launches = philox.message_bits.launches
+    msg_launches = kernels.launches["M"]
     u = philox.message_bits(SEED, 5, 0, BATCH, n_info, dev)
-    check(philox.message_bits.launches == msg_launches + 1,
+    check(kernels.launches["M"] == msg_launches + 1,
           "the message bits on the card did not launch csrc/message_stream.cu")
     cw5 = encode(u)
     torch.cuda.synchronize()
@@ -2128,10 +2089,10 @@ def main():
         rc_counts = counts()
         check(rc == 0, f"the codeword campaign returned {rc}")
         print(f"CLI sweep with codewords 3.6-3.7 dB: launches {rc_counts}")
-        check(all(rc_counts[k] > 0 for k in ("F", "C", "D", "emit"))
+        check(all(rc_counts[k] > 0 for k in ("F", "C", "D"))
               and rc_counts["A"] == rc_counts["B"] == 0
-              # one message draw a round, and one a replayed round
-              and rc_counts["M"] == rc_counts["F"] + rc_counts["emit"],
+              # one message draw a round, and one a replayed round (C)
+              and rc_counts["M"] == rc_counts["F"] + rc_counts["C"],
               f"the codeword campaign did not launch F, C and D: {rc_counts}")
         table = (outdir / "Result.txt").read_text().splitlines()
         print("\n".join("  " + r for r in table))
@@ -2144,7 +2105,7 @@ def main():
         reset_counts()
         check(cli.main(argv) == 0, "the resumed codeword campaign failed")
         again = counts()
-        check(again["F"] == 0 and again["M"] == again["emit"],
+        check(again["F"] == 0 and again["M"] == again["C"],
               f"the codeword rerun did not resume: {again}")
         check([r.split()[:7] for r in (outdir / "Result.txt").read_text().splitlines()]
               == [r.split()[:7] for r in table], "the resumed Result.txt differs")
@@ -2191,7 +2152,7 @@ def main():
         print("\n".join("  " + r for r in
                         (outdir / "Result.txt").read_text().splitlines()))
         check(fr_counts["F"] > 0 and fr_counts["D"] > 0
-              and fr_counts["M"] == fr_counts["F"] + fr_counts["emit"],
+              and fr_counts["M"] == fr_counts["F"] + fr_counts["C"],
               f"the frame-mode campaign launched {fr_counts}")
         # the codeword row: docs/channel_parity.json, QPSK 3.6 dB, FAID_DTBF,
         # real codewords, frame mode, the quantile channel
@@ -2222,7 +2183,7 @@ def main():
     cov = decoder_coverage(code, toy, dev, card, reset_counts, counts)
     err_b, err_d, err_e = (max(err_b, cov["B"]), max(err_d, cov["D"]),
                            max(err_e, cov["E"]))
-    sharded_path(code, cfg, card, campaign, mbit_s, mbit_r)
+    sharded_path(code, cfg, card, campaign)
     scripts_on_card(card, reset_counts, counts)
     tail_split(code, dev, card, decoders)
 
@@ -2254,7 +2215,7 @@ def main():
               "faid_tpu/ops/pallas_decoder.py:975", main_counts["F"], err_f,
               ms_f, plain_f),
         entry("fused_sim_emit", "emit", "faid_tpu_torch/csrc/quantile_channel.cu",
-              "faid_tpu/ops/pallas_decoder.py:1098", cli_counts["emit"], err_emit,
+              "faid_tpu/ops/pallas_decoder.py:1098", cli_counts["C"], err_emit,
               ms_emit, plain_emit),
         entry("quantile_channel_qam", "G", "faid_tpu_torch/csrc/qam_channel.cu",
               "faid_tpu/ops/pallas_channel.py:659", g["launches"], g["err"],

@@ -50,7 +50,8 @@ Public API:
                                      summed over the ranks
                                      (parallel/mesh.py)
 
-The throughput benchmark: python -m faid_tpu_torch.bench.
+The throughput benchmark: python3 benchmark/run.py, its cells in
+BENCHMARK.json.
 """
 
 from .code.qc_matrix import QCCode, load_code

@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import kernels
 from . import modem, philox
 from .fixed_point import _QUANT_LIMITS
 from .qam_plan import (CELL_ENTRY_WORDS, _plan, cell_table, grid, ndtr,
@@ -184,15 +185,6 @@ def _check_stats_args(n_var, n_info, mod_type):
         raise ValueError(f"n_info={n_info} outside (0, n_var={n_var}]")
 
 
-def _kernel_device(params):
-    """The device whose kernel to launch; None for the plain twin."""
-    if params.device.type == "cpu":
-        return None
-    if params.device.type != "cuda":
-        raise ValueError(f"no quantile channel for device {params.device}")
-    return params.device
-
-
 def quantile_channel_map_plain(params, *, seed: int, rnd: int, batch: int,
                                n_var: int, quant_bits: int, frame0: int = 0,
                                cw=None):
@@ -215,31 +207,20 @@ def quantile_channel_map(params, *, seed: int, rnd: int, batch: int,
     pre-decoder hard decision differs from the sent bit.  ``llr`` equals
     ``quantile_channel``'s bit for bit for the same (seed, rnd, frame0).
     A CPU ``params`` takes the plain twin; a CUDA one launches kernel C."""
-    dev = _kernel_device(params)
+    dev = kernels.kernel_device(params)
     if dev is None:
         return quantile_channel_map_plain(
             params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
             quant_bits=quant_bits, frame0=frame0, cw=cw)
     _check_args(params, batch, n_var, quant_bits, cw)
     philox.check_stream_args(seed, rnd, frame0, batch)
-    from ..utils import kernels
-
-    lib = kernels.library()
     lo, hi = _QUANT_LIMITS[quant_bits]
     llr = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
     err = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.faid_quantile_channel_map(
-            None if cw is None else cw.data_ptr(), llr.data_ptr(),
-            err.data_ptr(), params.data_ptr(), batch, n_var, max(hi, -lo),
-            lo, hi, seed, rnd, frame0, stream)
-    quantile_channel_map.launches += 1
-    kernels.check(status)
+    kernels.launch("faid_quantile_channel_map", dev, kernels.ptr(cw), llr.data_ptr(),
+                   err.data_ptr(), params.data_ptr(), batch, n_var, max(hi, -lo),
+                   lo, hi, seed, rnd, frame0)
     return llr, err
-
-
-quantile_channel_map.launches = 0
 
 
 def quantile_channel_plain(params, *, seed: int, rnd: int, batch: int,
@@ -264,7 +245,7 @@ def quantile_channel(params, *, seed: int, rnd: int, batch: int, n_var: int,
     (llr [batch, n_var] int8, mod_error_bits [batch] int32,
     mod_error_symbols [batch] int32).  A CPU ``params`` takes the plain
     twin; a CUDA one launches kernel A."""
-    dev = _kernel_device(params)
+    dev = kernels.kernel_device(params)
     if dev is None:
         return quantile_channel_plain(
             params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
@@ -273,26 +254,14 @@ def quantile_channel(params, *, seed: int, rnd: int, batch: int, n_var: int,
     _check_stats_args(n_var, n_info, mod_type)
     _check_args(params, batch, n_var, quant_bits, cw)
     philox.check_stream_args(seed, rnd, frame0, batch)
-    from ..utils import kernels
-
-    lib = kernels.library()
     lo, hi = _QUANT_LIMITS[quant_bits]
     llr = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
     bits = torch.empty(batch, dtype=torch.int32, device=dev)
     syms = torch.empty(batch, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.faid_quantile_channel(
-            None if cw is None else cw.data_ptr(), llr.data_ptr(),
-            bits.data_ptr(), syms.data_ptr(), params.data_ptr(), batch,
-            n_var, n_info, mod_type, max(hi, -lo), lo, hi, seed, rnd, frame0,
-            stream)
-    quantile_channel.launches += 1
-    kernels.check(status)
+    kernels.launch("faid_quantile_channel", dev, kernels.ptr(cw), llr.data_ptr(),
+                   bits.data_ptr(), syms.data_ptr(), params.data_ptr(), batch,
+                   n_var, n_info, mod_type, max(hi, -lo), lo, hi, seed, rnd, frame0)
     return llr, bits, syms
-
-
-quantile_channel.launches = 0
 
 
 def _check_qam_args(params, batch, n_var, mod_type, depth, quant_bits, scale, cw):
@@ -371,30 +340,19 @@ def quantile_channel_qam(tables: QamTables, *, seed: int, rnd: int,
     params, cells = tables.params, tables.cells
     _check_qam_args(params, batch, n_var, mod_type, depth, quant_bits, scale, cw)
     _check_qam_tables(tables, mod_type, quant_bits, scale)
-    dev = _kernel_device(params)
+    dev = kernels.kernel_device(params)
     if dev is None:
         return quantile_channel_qam_plain(
             params, seed=seed, rnd=rnd, batch=batch, n_var=n_var,
             mod_type=mod_type, depth=depth, quant_bits=quant_bits, scale=scale,
             frame0=frame0, cw=cw)
     philox.check_stream_args(seed, rnd, frame0, batch)
-    from ..utils import kernels
-
-    lib = kernels.library()
     lo, hi = _QUANT_LIMITS[quant_bits]
     if -lo == hi:               # the symmetric widths take no clip
         lo, hi = -2**31, 2**31 - 1
     llr = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
     err = torch.empty((batch, n_var), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.faid_qam_channel(
-            None if cw is None else cw.data_ptr(), llr.data_ptr(),
-            err.data_ptr(), cells.data_ptr(), cells.shape[0], cells.shape[1],
-            batch, n_var, mod_type, depth, lo, hi, seed, rnd, frame0, stream)
-    quantile_channel_qam.launches += 1
-    kernels.check(status)
+    kernels.launch("faid_qam_channel", dev, kernels.ptr(cw), llr.data_ptr(),
+                   err.data_ptr(), cells.data_ptr(), cells.shape[0], cells.shape[1],
+                   batch, n_var, mod_type, depth, lo, hi, seed, rnd, frame0)
     return llr, err
-
-
-quantile_channel_qam.launches = 0

@@ -50,6 +50,7 @@ from ..config import DecoderConfig
 from ..convert import tables_from_arrays
 from ..decoders import luts
 from ..decoders.bf import GROUP   # frames per stop word == per cluster
+from ..utils import kernels
 
 MAX_DEG = 24     # csrc/decoder.cuh kMaxDeg
 THREADS = 1024   # csrc/decoder.cuh kThreads: the BF tail takes a bit a thread
@@ -222,6 +223,10 @@ class DecoderTables:
                               #   first adjacency entry, -1 where it erases nothing
     ef_row: torch.Tensor      # [3 * erasing columns] their block rows
     ef_shift: torch.Tensor    # and shifts
+    # CUDA tables: the kernels' csrc/decoder.cuh CodeArgs, built once
+    # (``decoder_args``); None on the CPU
+    args: kernels.DecoderArgs | None = dataclasses.field(default=None,
+                                                         compare=False, repr=False)
 
 
 def erasing_entries(code: QCCode) -> dict:
@@ -290,7 +295,7 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
             ef_adj += rs
     ef_adj = np.array(ef_adj, dtype=np.int32).reshape(-1, 2)
     plan = launch_plan(code, dcfg)
-    return DecoderTables(
+    tables = DecoderTables(
         code=code, dcfg=dcfg, device=device,
         row_ptr=t(np.concatenate([[0], np.cumsum(deg)])),
         ent_col=t(cols), ent_shift=t(shifts), vote_col=t(vote),
@@ -299,6 +304,34 @@ def decoder_tables(code: QCCode, dcfg: DecoderConfig, device) -> DecoderTables:
         vote_row=t(vote_rs[:, 0]), vote_shift=t(vote_rs[:, 1]), lut=lut,
         lut_ef=lut_ef, plan=plan, msg_off=t(plan.msg_off), ef_ptr=t(ef_ptr),
         ef_row=t(ef_adj[:, 0]), ef_shift=t(ef_adj[:, 1]))
+    if device.type == "cuda":
+        tables = dataclasses.replace(tables, args=decoder_args(tables))
+    return tables
+
+
+def decoder_args(tables: DecoderTables) -> kernels.DecoderArgs:
+    """The kernels' code tables and parameters (csrc/decoder.cuh
+    ``CodeArgs``): the addresses of ``tables``' tensors, which the tables
+    keep alive, and the decoder's parameters."""
+    code, dcfg, bf = tables.code, tables.dcfg, tables.dcfg.bf
+    ptrs = {k: getattr(tables, k).data_ptr() for k in (
+        "row_ptr", "ent_col", "ent_shift", "vote_col", "vote_ptr", "vote_row",
+        "vote_shift", "lut", "lut_ef")}
+    return kernels.DecoderArgs(
+        **ptrs, n_var=code.n_var, n_info=code.n_info, z=code.z,
+        n_rows=code.n_block_rows, n_entries=int(tables.ent_col.numel()),
+        punct_start=code.n_var - code.puncture_tail, max_iter=dcfg.max_iter,
+        stop_early=int(dcfg.stop_early), factor_1=dcfg.factor_1,
+        factor_2=dcfg.factor_2, offset=dcfg.oms_offset,
+        sign_backtrack=int(dcfg.sign_backtrack),
+        floor_err_count=dcfg.floor_err_count,
+        floor_iter_thresh=dcfg.floor_iter_thresh,
+        n_vote=int(tables.vote_col.numel()), gamma=bf.gamma,
+        bf_max_iter=bf.max_iter, delta=bf.delta, l0_max=bf.l0, l1_max=bf.l1,
+        alpha=bf.alpha, vote_cap=bf.static_vote_cap,
+        reliability=bf.reliability_threshold, msg_off=tables.msg_off.data_ptr(),
+        msg_words=tables.plan.msg_words, ef_ptr=tables.ef_ptr.data_ptr(),
+        ef_row=tables.ef_row.data_ptr(), ef_shift=tables.ef_shift.data_ptr())
 
 
 def stats_decode_plain(llr: torch.Tensor, code: QCCode, dcfg: DecoderConfig,
@@ -358,47 +391,6 @@ def check_launch(batch: int, tables: DecoderTables) -> None:
             f"bytes) exceed a block's shared memory")
 
 
-def code_args(tables: DecoderTables):
-    """The kernels' code tables and parameters (csrc/decoder.cuh
-    ``CodeArgs``), and the current stream."""
-    from ..utils import kernels
-
-    code, dcfg, bf = tables.code, tables.dcfg, tables.dcfg.bf
-    ptrs = {k: getattr(tables, k).data_ptr() for k in (
-        "row_ptr", "ent_col", "ent_shift", "vote_col", "vote_ptr", "vote_row",
-        "vote_shift", "lut", "lut_ef")}
-    args = kernels.DecoderArgs(
-        **ptrs, n_var=code.n_var, n_info=code.n_info, z=code.z,
-        n_rows=code.n_block_rows, n_entries=int(tables.ent_col.numel()),
-        punct_start=code.n_var - code.puncture_tail, max_iter=dcfg.max_iter,
-        stop_early=int(dcfg.stop_early), factor_1=dcfg.factor_1,
-        factor_2=dcfg.factor_2, offset=dcfg.oms_offset,
-        sign_backtrack=int(dcfg.sign_backtrack),
-        floor_err_count=dcfg.floor_err_count,
-        floor_iter_thresh=dcfg.floor_iter_thresh,
-        n_vote=int(tables.vote_col.numel()), gamma=bf.gamma,
-        bf_max_iter=bf.max_iter, delta=bf.delta, l0_max=bf.l0, l1_max=bf.l1,
-        alpha=bf.alpha, vote_cap=bf.static_vote_cap,
-        reliability=bf.reliability_threshold, msg_off=tables.msg_off.data_ptr(),
-        msg_words=tables.plan.msg_words, ef_ptr=tables.ef_ptr.data_ptr(),
-        ef_row=tables.ef_row.data_ptr(), ef_shift=tables.ef_shift.data_ptr())
-    return ctypes.byref(args), torch.cuda.current_stream(tables.device).cuda_stream
-
-
-def _on_kernel_device(llr: torch.Tensor, tables: DecoderTables) -> bool:
-    """True for a CUDA ``llr`` (launch the kernel), False for a CPU one
-    (take the plain twin)."""
-    if llr.device != tables.device:
-        raise ValueError(f"llr on {llr.device}, tables on {tables.device}")
-    if llr.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no decoder kernel for device {llr.device}")
-    return llr.device.type == "cuda"
-
-
-def ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
 def frame_mode(dcfg: DecoderConfig) -> int:
     """The kernels' stop-mode flag: 1 for frame stop mode, 0 for group."""
     return int(dcfg.stop_mode == "frame")
@@ -427,29 +419,19 @@ def stats_decode(llr: torch.Tensor, tables: DecoderTables,
     [batch] int32.  A CPU tensor takes the plain twin; a CUDA tensor
     launches kernel B."""
     ref = reference_word(ref, llr.shape[0], tables.code.n_info, llr.device)
-    if not _on_kernel_device(llr, tables):
+    dev = kernels.kernel_device(llr, tables.device)
+    if dev is None:
         return stats_decode_plain(llr, tables.code, tables.dcfg, ref)
     style, bf = kernel_ids(tables.dcfg)
     _check_llr(llr, tables)
-    from ..utils import kernels
-
-    lib = kernels.library()
     batch = llr.shape[0]
-    err, iters, rounds = (torch.empty(batch, dtype=torch.int32,
-                                      device=llr.device) for _ in range(3))
-    with torch.cuda.device(llr.device):
-        args, stream = code_args(tables)
-        status = lib.faid_stats_decoder(
-            style, bf, frame_mode(tables.dcfg), tables.plan.msg_bits,
-            llr.data_ptr(), err.data_ptr(), iters.data_ptr(), rounds.data_ptr(),
-            ptr(ref), 0 if ref is None else ref.shape[1], args, batch, stream,
-            None)
-    stats_decode.launches += 1
-    kernels.check(status)
+    err, iters, rounds = (torch.empty(batch, dtype=torch.int32, device=dev)
+                          for _ in range(3))
+    kernels.launch("faid_stats_decoder", dev, style, bf, frame_mode(tables.dcfg),
+                   tables.plan.msg_bits, llr.data_ptr(), err.data_ptr(),
+                   iters.data_ptr(), rounds.data_ptr(), kernels.ptr(ref),
+                   0 if ref is None else ref.shape[1], tables.args, batch)
     return err, iters, rounds
-
-
-stats_decode.launches = 0
 
 
 def full_decode(llr: torch.Tensor, tables: DecoderTables):
@@ -457,61 +439,42 @@ def full_decode(llr: torch.Tensor, tables: DecoderTables):
     n_var] int8 0/1, mp_iters [batch] int32, bf_rounds [batch] int32),
     ``hard`` the final decisions (after the BF tail).  A CPU tensor takes
     the plain twin; a CUDA tensor launches kernel D."""
-    if not _on_kernel_device(llr, tables):
+    dev = kernels.kernel_device(llr, tables.device)
+    if dev is None:
         return full_decode_plain(llr, tables.code, tables.dcfg)
     style, bf = kernel_ids(tables.dcfg)
     if bf == BF_IDS["none"]:
         raise ValueError("kernel D runs a BF tail; mp_decode (kernel E) "
                          "decodes a configuration without one")
     _check_llr(llr, tables)
-    from ..utils import kernels
-
-    lib = kernels.library()
     batch = llr.shape[0]
     hard = torch.empty_like(llr)
-    iters, rounds = (torch.empty(batch, dtype=torch.int32, device=llr.device)
+    iters, rounds = (torch.empty(batch, dtype=torch.int32, device=dev)
                      for _ in range(2))
-    with torch.cuda.device(llr.device):
-        args, stream = code_args(tables)
-        status = lib.faid_full_decoder(
-            style, bf, frame_mode(tables.dcfg), tables.plan.msg_bits,
-            llr.data_ptr(), hard.data_ptr(), iters.data_ptr(), rounds.data_ptr(),
-            args, batch, stream, None)
-    full_decode.launches += 1
-    kernels.check(status)
+    kernels.launch("faid_full_decoder", dev, style, bf, frame_mode(tables.dcfg),
+                   tables.plan.msg_bits, llr.data_ptr(), hard.data_ptr(),
+                   iters.data_ptr(), rounds.data_ptr(), tables.args, batch)
     return hard, iters, rounds
-
-
-full_decode.launches = 0
 
 
 def mp_decode(llr: torch.Tensor, tables: DecoderTables):
     """MP-decode ``llr`` [batch, n_var] int8 with no BF tail: (en [batch,
     n_var] int8, the final LLRs; mp_iters [batch] int32).  A CPU tensor
     takes the plain twin; a CUDA tensor launches kernel E."""
-    if not _on_kernel_device(llr, tables):
+    dev = kernels.kernel_device(llr, tables.device)
+    if dev is None:
         return mp_decode_plain(llr, tables.code, tables.dcfg)
     style, bf = kernel_ids(tables.dcfg)
     if bf != BF_IDS["none"]:
         raise ValueError("kernel E runs no BF tail; full_decode (kernel D) "
                          "decodes a configuration with one")
     _check_llr(llr, tables)
-    from ..utils import kernels
-
-    lib = kernels.library()
     en = torch.empty_like(llr)
-    iters = torch.empty(llr.shape[0], dtype=torch.int32, device=llr.device)
-    with torch.cuda.device(llr.device):
-        args, stream = code_args(tables)
-        status = lib.faid_mp_decoder(
-            style, frame_mode(tables.dcfg), tables.plan.msg_bits, llr.data_ptr(),
-            en.data_ptr(), iters.data_ptr(), args, llr.shape[0], stream, None)
-    mp_decode.launches += 1
-    kernels.check(status)
+    iters = torch.empty(llr.shape[0], dtype=torch.int32, device=dev)
+    kernels.launch("faid_mp_decoder", dev, style, frame_mode(tables.dcfg),
+                   tables.plan.msg_bits, llr.data_ptr(), en.data_ptr(),
+                   iters.data_ptr(), tables.args, llr.shape[0])
     return en, iters
-
-
-mp_decode.launches = 0
 
 
 def launch_info(kernel: str, tables: DecoderTables, batch: int = GROUP) -> dict:
@@ -520,28 +483,18 @@ def launch_info(kernel: str, tables: DecoderTables, batch: int = GROUP) -> dict:
     ``active`` clusters a device holds at once (group mode,
     cudaOccupancyMaxActiveClusters) or blocks an SM holds (frame mode),
     its dynamic shared bytes, frames a block and blocks a cluster."""
-    from ..utils import kernels
-
-    lib = kernels.library()
     style, bf = kernel_ids(tables.dcfg)
     fm, bits = frame_mode(tables.dcfg), tables.plan.msg_bits
+    calls = {   # each entry's arguments before the tables, with no buffers
+        "B": ("faid_stats_decoder", (style, bf, fm, bits, *[None] * 5, 0)),
+        "D": ("faid_full_decoder", (style, bf, fm, bits, *[None] * 4)),
+        "E": ("faid_mp_decoder", (style, fm, bits, *[None] * 3)),
+        # F: QPSK and no thresholds
+        "F": ("faid_fused_sim", (style, bf, fm, bits, *[None] * 7, 2, *[0] * 6))}
+    if kernel not in calls:
+        raise ValueError(f"no decoder kernel {kernel!r}")
+    entry, head = calls[kernel]
     info = (ctypes.c_int * 4)()
-    where = ctypes.addressof(info)
-    with torch.cuda.device(tables.device):
-        args, stream = code_args(tables)
-        if kernel == "B":
-            status = lib.faid_stats_decoder(style, bf, fm, bits, None, None, None,
-                                            None, None, 0, args, batch, stream, where)
-        elif kernel == "D":
-            status = lib.faid_full_decoder(style, bf, fm, bits, None, None, None,
-                                           None, args, batch, stream, where)
-        elif kernel == "E":
-            status = lib.faid_mp_decoder(style, fm, bits, None, None, None, args,
-                                         batch, stream, where)
-        elif kernel == "F":   # no buffers, QPSK, no thresholds
-            status = lib.faid_fused_sim(style, bf, fm, bits, *[None] * 7, 2, 0, 0, 0,
-                                        0, 0, 0, args, batch, stream, where)
-        else:
-            raise ValueError(f"no decoder kernel {kernel!r}")
-    kernels.check(status)
+    kernels.launch(entry, tables.device, *head, tables.args, batch,
+                   info=ctypes.addressof(info))
     return dict(zip(("active", "smem_bytes", "frames", "cluster"), info))

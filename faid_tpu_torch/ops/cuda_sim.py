@@ -25,7 +25,7 @@ same frames gives F's error counts, which is what makes the replay of a
 fused round exact.
 
 Each wrapper launches its kernel on a CUDA tensor and takes its plain
-twin on a CPU one, and keeps a ``launches`` count.
+twin on a CPU one; utils/kernels.py ``launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..code.qc_matrix import QCCode
+from ..utils import kernels
 from . import cuda_channel as cc
 from . import cuda_decoder as cd
 from . import philox
@@ -78,9 +79,7 @@ def fused_sim(params: torch.Tensor, tables: cd.DecoderTables, *, seed: int,
     [batch] int32 (bf_rounds 0 without a BF tail).  A CPU ``params`` takes
     the plain twin; a CUDA one launches kernel F."""
     code, dcfg = tables.code, tables.dcfg
-    if params.device != tables.device:
-        raise ValueError(f"params on {params.device}, tables on {tables.device}")
-    dev = cc._kernel_device(params)
+    dev = kernels.kernel_device(params, tables.device)
     if dev is None:
         return fused_sim_plain(params, code, dcfg, seed=seed, rnd=rnd,
                                batch=batch, mod_type=mod_type,
@@ -96,23 +95,13 @@ def fused_sim(params: torch.Tensor, tables: cd.DecoderTables, *, seed: int,
     cd.check_launch(batch, tables)
     out = {k: torch.empty(batch, dtype=torch.int32, device=dev)
            for k in COUNTERS}
-    from ..utils import kernels
-
-    lib = kernels.library()
     lo, hi = _QUANT_LIMITS[quant_bits]
-    with torch.cuda.device(dev):
-        args, stream = cd.code_args(tables)
-        status = lib.faid_fused_sim(
-            style, bf, cd.frame_mode(dcfg), tables.plan.msg_bits, cd.ptr(cw),
-            *(out[k].data_ptr() for k in COUNTERS), params.data_ptr(),
-            mod_type, max(hi, -lo), lo, hi, seed, rnd, frame0, args, batch,
-            stream, None)
-    fused_sim.launches += 1
-    kernels.check(status)
+    kernels.launch("faid_fused_sim", dev, style, bf, cd.frame_mode(dcfg),
+                   tables.plan.msg_bits, kernels.ptr(cw),
+                   *(out[k].data_ptr() for k in COUNTERS), params.data_ptr(),
+                   mod_type, max(hi, -lo), lo, hi, seed, rnd, frame0, tables.args,
+                   batch)
     return out
-
-
-fused_sim.launches = 0
 
 
 def fused_sim_emit(params: torch.Tensor, *, seed: int, rnd: int, batch: int,
@@ -122,15 +111,9 @@ def fused_sim_emit(params: torch.Tensor, *, seed: int, rnd: int, batch: int,
     before the ingest, mod_err [batch, n_var] int8).  A CUDA ``params``
     launches kernel C (the same function under the one stream); a CPU one
     takes C's plain twin."""
-    out = cc.quantile_channel_map(params, seed=seed, rnd=rnd, batch=batch,
-                                  n_var=n_var, quant_bits=quant_bits,
-                                  frame0=frame0, cw=cw)
-    if params.device.type == "cuda":
-        fused_sim_emit.launches += 1
-    return out
-
-
-fused_sim_emit.launches = 0
+    return cc.quantile_channel_map(params, seed=seed, rnd=rnd, batch=batch,
+                                   n_var=n_var, quant_bits=quant_bits,
+                                   frame0=frame0, cw=cw)
 
 
 def _check_cw(cfg, cw):

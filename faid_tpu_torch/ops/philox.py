@@ -195,28 +195,16 @@ def message_bits(seed: int, rnd: int, frame0: int, batch: int, n_bits: int,
     the current stream, with every scalar a kernel argument (no copy to
     the device, no wait for it); on the CPU the plain twin
     ``message_bits_plain`` computes the same bits."""
-    device = torch.device(device)
-    if device.type == "cpu":
+    dev = kernels.kernel_device(device)
+    if dev is None:
         return message_bits_plain(seed, rnd, frame0, batch, n_bits, device)
-    if device.type != "cuda":
-        raise ValueError(f"no message stream for device {device}")
     check_stream_args(seed, rnd, frame0, batch)
     _message_calls(n_bits)
-    out = torch.empty((batch, n_bits), dtype=torch.int8, device=device)
-    if not out.numel():
-        return out
-    with torch.cuda.device(out.device):
-        # the raw handle of the current stream, as torch's generated
-        # kernels take it: no Stream object a call
-        status = kernels.library().faid_message_bits(
-            out.data_ptr(), batch, n_bits, seed, rnd, frame0,
-            torch._C._cuda_getCurrentRawStream(out.device.index))
-    message_bits.launches += 1
-    kernels.check(status)
+    out = torch.empty((batch, n_bits), dtype=torch.int8, device=dev)
+    if out.numel():
+        kernels.launch("faid_message_bits", dev, out.data_ptr(), batch, n_bits,
+                       seed, rnd, frame0)
     return out
-
-
-message_bits.launches = 0
 
 
 def normal_from_words(w: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import kernels
+
 REPO = Path(__file__).resolve().parents[2]
 DOCS = REPO / "docs"                  # the JAX package's artifacts
 OUT_DIR = DOCS / "torch_h100"         # the port's
@@ -38,22 +40,10 @@ def card_line(device) -> str:
         timeout=60).stdout.strip()
 
 
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper by its letter; a wrapper adds one to its
-    ``launches`` where it launches its kernel, and nowhere else."""
-    from ..ops import cuda_channel as cc
-    from ..ops import cuda_decoder as cd
-    from ..ops import cuda_sim as cs
-    from ..ops import philox
-
-    return {"A": cc.quantile_channel, "B": cd.stats_decode,
-            "C": cc.quantile_channel_map, "D": cd.full_decode, "E": cd.mp_decode,
-            "F": cs.fused_sim, "emit": cs.fused_sim_emit,
-            "G": cc.quantile_channel_qam, "M": philox.message_bits}
-
-
 def launch_counts() -> dict[str, int]:
-    return {k: w.launches for k, w in kernel_wrappers().items()}
+    """Each kernel's launches so far by its letter (utils/kernels.py
+    ``launches``), every letter present."""
+    return {k: kernels.launches[k] for k in sorted(set(kernels.KERNEL_LETTERS.values()))}
 
 
 def launches_since(before: dict[str, int]) -> dict[str, int]:

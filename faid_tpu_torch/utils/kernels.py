@@ -8,10 +8,16 @@ bound with ``ctypes``.  The library lands in
 ``build/``), named by a hash of the sources and flags, so an edited
 source builds anew and an unchanged one loads the cached library.
 Nothing here runs at import time; a failed build raises.
+
+Every kernel wrapper goes through one seam: ``kernel_device`` sends a
+CPU tensor to the plain twin and picks the CUDA device to launch on,
+``launch`` calls the entry point on that device's current stream, adds
+one to the kernel's letter in ``launches`` and raises on a bad status.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -21,6 +27,8 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "faid_tpu_torch"
@@ -77,6 +85,16 @@ _SIGNATURES = {
         [_P, _I, _I, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
     "faid_error_string": ([_I], ctypes.c_char_p),
 }
+# the kernel each entry point launches, by its letter
+KERNEL_LETTERS = {
+    "faid_quantile_channel": "A", "faid_stats_decoder": "B",
+    "faid_quantile_channel_map": "C", "faid_full_decoder": "D",
+    "faid_mp_decoder": "E", "faid_fused_sim": "F", "faid_qam_channel": "G",
+    "faid_message_bits": "M"}
+# the decoder entries, which take the DecoderArgs and an info address
+_TAKES_INFO = frozenset(n for n, (a, _) in _SIGNATURES.items() if _ARGS in a)
+# launches of each kernel by its letter, counted by ``launch``
+launches = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -156,3 +174,52 @@ def check(status: int) -> None:
     if status:
         msg = library().faid_error_string(status).decode()
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({status})")
+
+
+def kernel_device(t, *others) -> torch.device | None:
+    """Where a wrapper runs ``t`` (a tensor or a device): None for the CPU
+    (its plain twin), else the indexed CUDA device to launch its kernel
+    on.  Raises ValueError for any other device, or where one of
+    ``others`` (tensors or devices: the tables', the params') is on
+    another device than ``t``."""
+    dev = _device(t)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel and no plain twin for device {dev}")
+    for o in others:
+        if _device(o) != dev:
+            raise ValueError(f"operands on {dev} and on {_device(o)}: a kernel "
+                             "takes them on one device")
+    return None if dev.type == "cpu" else dev
+
+
+def _device(x) -> torch.device:
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+    if dev.type == "cuda" and dev.index is None:
+        # tensors created on "cuda" report the indexed current device
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def ptr(t: torch.Tensor | None):
+    """A tensor's address for an entry point; None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def launch(entry: str, device: torch.device, *args, info=None) -> None:
+    """Call entry point ``entry`` with ``args`` on ``device`` (as
+    ``kernel_device`` gave it) and its current stream.  The decoder
+    entries (B, D, E, F) take ``info`` last: an int[4] address to query
+    the launch instead of making it, which counts nothing; every other
+    call adds one to the kernel's letter in ``launches``."""
+    fn = getattr(library(), entry)
+    with torch.cuda.device(device):
+        # the raw handle of the current stream, as torch's generated
+        # kernels take it: no Stream object a call
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
+        if entry in _TAKES_INFO:
+            status = fn(*args, stream, info)
+        else:
+            status = fn(*args, stream)
+    if info is None:
+        launches[KERNEL_LETTERS[entry]] += 1
+    check(status)

@@ -53,25 +53,19 @@ from faid_tpu_torch import (MonteCarloRunner, build_sim_loop,  # noqa: E402
                             load_code)
 from faid_tpu_torch.code.toy import toy_code  # noqa: E402
 from faid_tpu_torch.config import DecodeMethod, SimConfig  # noqa: E402
-from faid_tpu_torch.ops import cuda_channel as cc  # noqa: E402
-from faid_tpu_torch.ops import cuda_decoder as cd  # noqa: E402
-from faid_tpu_torch.ops import cuda_sim as cs  # noqa: E402
 from faid_tpu_torch.parallel.mesh import (  # noqa: E402
     all_reduce_counters, build_sharded_sim_loop, frame0, make_mesh)
+from faid_tpu_torch.scripts._common import launch_counts  # noqa: E402
 from faid_tpu_torch.sim import runner as runner_mod  # noqa: E402
+from faid_tpu_torch.utils import kernels  # noqa: E402
 
-WRAPPERS = {"A": cc.quantile_channel, "B": cd.stats_decode,
-            "C": cc.quantile_channel_map, "D": cd.full_decode,
-            "E": cd.mp_decode, "F": cs.fused_sim, "emit": cs.fused_sim_emit,
-            "G": cc.quantile_channel_qam}
 TIMEOUT_S = 120
 
 
 def launches(reset: bool = False) -> dict:
-    counts = {k: w.launches for k, w in WRAPPERS.items()}
+    counts = launch_counts()
     if reset:
-        for w in WRAPPERS.values():
-            w.launches = 0
+        kernels.launches.clear()
     return counts
 
 

@@ -33,6 +33,7 @@ from faid_tpu_torch.convert import code_from_arrays
 from faid_tpu_torch.decoders import bf
 from faid_tpu_torch.decoders.core import build_decoder, build_stats_decoder
 from faid_tpu_torch.ops import cn_update, cuda_decoder, syndrome
+from faid_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -168,7 +169,7 @@ def test_stats_decoder_toy_vs_pallas_interpret(rng, stop_mode, llr_range):
         assert got[k].dtype == torch.int32
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
     assert got["bf_rounds"].sum() > 0 and got["err_bits"][:32].sum() == 0
-    assert cuda_decoder.stats_decode.launches == 0
+    assert kernels.launches["B"] == 0
 
 
 def noisy_llrs(rng, batch, n, snr_db):

@@ -39,6 +39,7 @@ from faid_tpu_torch.convert import code_from_arrays
 from faid_tpu_torch.decoders.core import build_decoder, build_stats_decoder
 from faid_tpu_torch.ops import cn_update, syndrome
 from faid_tpu_torch.ops import cuda_decoder as cd
+from faid_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -344,5 +345,5 @@ def test_twins_vs_pallas_interpret(style, kind):
         np.testing.assert_array_equal(rounds.numpy(), np.asarray(w_bf))
         assert int(rounds.sum()) > 0
     np.testing.assert_array_equal(iters.numpy(), np.asarray(w_iters).reshape(64))
-    assert cd.stats_decode.launches == cd.full_decode.launches == \
-        cd.mp_decode.launches == 0
+    assert kernels.launches["B"] == kernels.launches["D"] == \
+        kernels.launches["E"] == 0

@@ -131,7 +131,6 @@ def test_port_imports_no_jax():
             "faid_tpu_torch.sim.pipeline", "faid_tpu_torch.sim.runner",
             "faid_tpu_torch.cli", "faid_tpu_torch.utils.kernels",
             "faid_tpu_torch.utils.profile", "faid_tpu_torch.parallel.mesh",
-            "faid_tpu_torch.bench",
             "faid_tpu_torch.scripts._common",
             "faid_tpu_torch.scripts.fer_validation",
             "faid_tpu_torch.scripts.channel_parity",

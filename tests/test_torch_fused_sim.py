@@ -32,6 +32,7 @@ from faid_tpu_torch.code.toy import toy_code
 from faid_tpu_torch.config import SimConfig
 from faid_tpu_torch.ops import cuda_channel, cuda_decoder, cuda_sim, philox
 from faid_tpu_torch.sim import pipeline, runner
+from faid_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -198,18 +199,13 @@ def test_debug_step_with_codewords():
 def test_cpu_rounds_launch_no_kernel():
     """On the CPU every kernel's wrapper takes its plain twin: the round,
     its replay and the composed path launch nothing."""
-    wrappers = (cuda_sim.fused_sim, cuda_sim.fused_sim_emit,
-                cuda_channel.quantile_channel, cuda_channel.quantile_channel_map,
-                cuda_decoder.stats_decode, cuda_decoder.full_decode,
-                cuda_decoder.mp_decode)
-    for w in wrappers:
-        w.launches = 0
+    kernels.launches.clear()
     code = toy_code()
     cfg = _cfg(SimConfig, batch_per_device=32)
     build_sim_loop(code, cfg, 2, "cpu")(0, sigma_for(cfg, 2.0), 0)
     build_sim_loop(code, cfg, 1, "cpu", fuse=False)(0, sigma_for(cfg, 2.0), 0)
     build_debug_step(code, cfg, "cpu")(0, 0, sigma_for(cfg, 2.0))
-    assert [w.launches for w in wrappers] == [0] * len(wrappers)
+    assert not kernels.launches
     # the replay of a fused round goes through emit, as on the card
     assert pipeline._fuses(code, cfg)
     assert not pipeline._fuses(code, dataclasses.replace(cfg, backend="plain"))

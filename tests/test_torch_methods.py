@@ -33,6 +33,7 @@ from faid_tpu_torch.decoders import bf
 from faid_tpu_torch.decoders.core import build_decoder, build_stats_decoder
 from faid_tpu_torch.ops import cn_update, syndrome
 from faid_tpu_torch.ops import cuda_decoder as cd
+from faid_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -203,8 +204,8 @@ def test_kernel_twins_vs_pallas_interpret(name):
     np.testing.assert_array_equal(dec["hard"].numpy(), w_hard.astype(bool))
     np.testing.assert_array_equal(dec["mp_iters"].numpy(), iters.numpy())
     np.testing.assert_array_equal(dec["bf_rounds"].numpy(), np.asarray(w_bf))
-    assert cd.stats_decode.launches == cd.full_decode.launches == \
-        cd.mp_decode.launches == 0
+    assert kernels.launches["B"] == kernels.launches["D"] == \
+        kernels.launches["E"] == 0
 
 
 @pytest.mark.parametrize("name", METHODS)

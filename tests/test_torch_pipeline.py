@@ -26,6 +26,7 @@ from faid_tpu_torch.config import DecodeMethod, SimConfig
 from faid_tpu_torch.convert import code_from_arrays
 from faid_tpu_torch.ops import cuda_channel, cuda_decoder, philox
 from faid_tpu_torch.sim import pipeline
+from faid_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -170,13 +171,12 @@ def test_low_snr_errors():
 
 
 def test_cpu_never_launches_kernels():
-    cuda_channel.quantile_channel.launches = 0
-    cuda_decoder.stats_decode.launches = 0
+    kernels.launches.clear()
     code = toy_code()
     cfg = _cfg(SimConfig, 32)
     build_sim_loop(code, cfg, 2, "cpu")(0, sigma_for(cfg, 3.0), 0)
-    assert cuda_channel.quantile_channel.launches == 0
-    assert cuda_decoder.stats_decode.launches == 0
+    assert kernels.launches["A"] == 0
+    assert kernels.launches["B"] == 0
 
 
 def test_unported_pipeline_configs_raise():

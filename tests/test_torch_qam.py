@@ -29,6 +29,7 @@ from faid_tpu_torch.config import DecodeMethod, DecoderConfig, SimConfig
 from faid_tpu_torch.ops import cuda_channel as cc
 from faid_tpu_torch.ops import cuda_sim, philox, qam_plan
 from faid_tpu_torch.sim import pipeline, runner
+from faid_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -149,9 +150,9 @@ def test_kernel_g_twin_matches_jax_rail_layout(rng, mod_type, depth,
               mod_type=mod_type, depth=depth, quant_bits=quant_bits,
               scale=cfg.scale, frame0=3)
     tables = cc.qam_tables(params, mod_type, quant_bits, cfg.scale)
-    cc.quantile_channel_qam.launches = 0
+    kernels.launches.clear()
     got = cc.quantile_channel_qam(tables, cw=torch.from_numpy(cw), **kw)
-    assert cc.quantile_channel_qam.launches == 0       # the CPU twin
+    assert kernels.launches["G"] == 0       # the CPU twin
     ix = philox.channel_words(9, kw["rnd"], 3, batch, 2 * (n // mod_type),
                               "cpu").numpy().reshape(batch, -1, 2)
     want = _jax_rail_composition(cw, ix, params.numpy(), mod_type, depth,
@@ -347,13 +348,13 @@ def test_kernel_f_is_not_the_float_chain(monkeypatch):
             assert cuda_sim.supports_sim(code, cfg)
             assert pipeline._fuses(code, cfg) == fuses
     cfg, _ = _cfg(mod_type=2, interleave_depth=1, fake_encode=True)
-    cuda_sim.fused_sim.launches = 0
+    kernels.launches.clear()
     calls = []
     real = philox.normal_noise
     monkeypatch.setattr(philox, "normal_noise",
                         lambda *a: calls.append(a) or real(*a))
     build_sim_step(code, cfg, "cpu")(0, 0, 0.5)
-    assert len(calls) == 1 and cuda_sim.fused_sim.launches == 0
+    assert len(calls) == 1 and kernels.launches["F"] == 0
 
 
 def test_check_ported_covers_the_slice():

@@ -29,6 +29,7 @@ from faid_tpu_torch.ops import cuda_channel as cc
 from faid_tpu_torch.ops import cuda_decoder as cd
 from faid_tpu_torch.ops import philox
 from faid_tpu_torch.sim import pipeline
+from faid_tpu_torch.utils import kernels
 
 # The suite runs in several worker processes on one CPU: one intra-op
 # thread per worker keeps torch from oversubscribing the cores.
@@ -63,7 +64,7 @@ def test_map_channel_equals_jax_staircase(rng, mod_type, quant_bits):
     np.testing.assert_array_equal(
         err[:, :n_info].sum(dim=1, dtype=torch.int32).numpy(), a_bits.numpy())
     assert int(a_bits.sum()) > 0
-    assert cc.quantile_channel_map.launches == 0   # CPU tensors never launch
+    assert kernels.launches["C"] == 0   # CPU tensors never launch
 
 
 def _cfgs(stop_mode):
@@ -98,7 +99,7 @@ def test_full_decoder_toy_vs_pallas_interpret(rng, stop_mode, llr_range):
     np.testing.assert_array_equal(iters.numpy(), w_iters)
     np.testing.assert_array_equal(bf.numpy(), w_bf)
     assert int(bf.sum()) > 0 and int(hard[:32].sum()) == 0
-    assert cd.full_decode.launches == 0
+    assert kernels.launches["D"] == 0
 
 
 def test_build_decoder_backends_agree(rng):
