@@ -151,7 +151,9 @@ chain's parts, and of the QAM rounds on both channels, and G's bound;
      2, codewords), each timed in turns against the same launch at a
      round cap of 0 and at 1 (CUDA events, batch 2048): MP, the tail, its
      opening and each further round; beside them every tail instance's
-     ptxas registers and spills.  `python3 chip_smoke.py --tail-split`
+     ptxas registers and spills; and MP's time an iteration, the slope
+     between 6 and 3 fixed iterations with the tail's cap at 0, of F's
+     FAID+DTBF instance (zero word, 4.0 dB) and of B's (the 16-QAM LLRs).  `python3 chip_smoke.py --tail-split`
      runs the build and this phase alone.
 The bounds, timers and profiles are faid_tpu_torch/scripts/roofline.py's
 (its op model), the z tests and the readers of the JAX package's
@@ -1209,7 +1211,8 @@ def tail_split(code, dev, card, decoders) -> None:
     cell's point (FAID-2B1C, scale 12.5, QPSK, zero word, 3.6 dB) and
     kernel B on the 16-QAM cell's LLRs (kernel G at 7.5 dB, depth 2,
     codewords, FAID+DTBF); beside them the ptxas report of every decoder
-    instance with a tail."""
+    instance with a tail; and MP's time an iteration of F's FAID+DTBF
+    instance and of B's, fixed iterations with the tail's cap at 0."""
     from faid_tpu_torch import sigma_for
     from faid_tpu_torch.code.encoder import make_encode_fn
     from faid_tpu_torch.config import DecodeMethod, SimConfig
@@ -1247,6 +1250,30 @@ def tail_split(code, dev, card, decoders) -> None:
               f"{ms_one - ms_mp:.4f} ms, each further round "
               f"{(ms_all - ms_one) / max(mean - 1, 1e-9):.4f} ms)")
 
+    def mp_iteration(what, run, dcfg):
+        # fixed iterations and the tail's cap at 0: the slope between the
+        # full count and half of it is MP's time an iteration
+        def fixed(iters):
+            return cd.decoder_tables(code, dataclasses.replace(
+                dcfg, stop_early=False, max_iter=iters,
+                bf=dataclasses.replace(dcfg.bf, max_iter=0)), dev)
+        full, half = dcfg.max_iter, dcfg.max_iter // 2
+        t_full, t_half = fixed(full), fixed(half)
+        ms_full, ms_half = in_turns(lambda: run(t_full), lambda: run(t_half), 10, 10)
+        print(f"{what}, fixed iterations and the tail's cap at 0, batch {BATCH} ({card}): "
+              f"{full} iterations {ms_full:.4f} ms ({ms_full / full:.4f} ms an iteration), "
+              f"{half} iterations {ms_half:.4f} ms; MP {(ms_full - ms_half) / (full - half):.4f} "
+              f"ms an iteration (the slope)")
+
+    # kernel F, the zero-word cell's instance (FAID+DTBF, 4.0 dB)
+    zcfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6, mod_type=2,
+                     quant_bits=4, scale=13.0, batch_per_device=BATCH, fake_encode=True,
+                     channel_backend="fused", stop_mode="group", seed=SEED)
+    zparams = cc.threshold_ints(zcfg, sigma_for(zcfg, 4.0)).to(dev)
+    zkw = dict(seed=SEED, rnd=25, batch=BATCH, mod_type=2, quant_bits=4)
+    mp_iteration("phase 25: kernel F, FAID+DTBF at 4.0 dB, zero word",
+                 lambda t: cs.fused_sim(zparams, t, **zkw), zcfg.decoder())
+
     # kernel F, the waterfall cell's point
     wcfg = SimConfig(decode_method=DecodeMethod.FAID_2B1C, max_iteration=6, mod_type=2,
                      quant_bits=4, scale=12.5, batch_per_device=BATCH, fake_encode=True,
@@ -1274,6 +1301,8 @@ def tail_split(code, dev, card, decoders) -> None:
           f"words with a tail {int((rounds.view(-1, 32)[:, 0] > 0).sum())} of {BATCH // 32}")
     report("phase 25: kernel B, FAID+DTBF on kernel G's 16-QAM LLRs at 7.5 dB, codewords",
            lambda t: cd.stats_decode(llr, t, cw), qt, rounds)
+    mp_iteration("phase 25: kernel B, FAID+DTBF on kernel G's 16-QAM LLRs at 7.5 dB",
+                 lambda t: cd.stats_decode(llr, t, cw), qcfg.decoder())
     print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
 
 

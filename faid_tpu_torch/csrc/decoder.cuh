@@ -50,12 +50,12 @@
 // NMS runs every iteration.
 //
 // What bounds it on the H100: operations.  A layered iteration does ~20
-// int32 operations per edge (70,400 edges a frame on 50G-PON) on state
-// that every edge touches twice, so the state has to sit next to the
-// ALUs.  A 32-frame word's state is 2.25 MB of int8 messages and 0.56 MB
-// of en, too much for one SM; kept in global memory (L2 and HBM), it
-// costs a byte gather or scatter there per edge and pass, and a block
-// per word leaves half of the 132 SMs idle at batch 2048.
+// int32 operations per edge and frame in the op model (70,400 edges a
+// frame on 50G-PON) on state that every edge touches twice, so the state
+// has to sit next to the ALUs.  A 32-frame word's state is 2.25 MB of int8
+// messages and 0.56 MB of en, too much for one SM; kept in global memory
+// (L2 and HBM), it costs a byte gather or scatter there per edge and pass,
+// and a block per word leaves half of the 132 SMs idle at batch 2048.
 //
 // The cluster design:
 //  * the state is split by frame.  Every published configuration bounds
@@ -74,28 +74,43 @@
 //    memory (cluster_or), so alive, the iteration and the round counts
 //    come out equal in all its blocks; the MP loop's sweep stops in the
 //    whole word at the first unsatisfied check (14% of kernel B's time,
-//    scripts/decoder_variants.py, H100 SXM at 700 W);
+//    H100 SXM at 700 W, the measurement recorded in PERF.md section 6);
 //  * frame mode needs no OR across blocks and launches no cluster: each
 //    frame's state, iterations and rounds depend on its own sweeps only
-//    (frozen frames are neither read nor written; a BF tail reactivates
-//    every frame and its first sweep refreezes the clean ones, which
-//    then neither flip nor count a round; a clean frame's decisions are
-//    en > 0 with or without a tail), so a block that leaves its loops
-//    when its own frames are frozen gives the counters a word-wide loop
-//    gives;
-//  * kThreads = 1024 threads map on (frame, zz) of the block's frames,
-//    one item a row at kF = 4; within a block row each VN is touched by
-//    exactly one check (a column appears once per row and z -> (z + s)
-//    mod Z is a bijection), so a row update needs no atomics, only a
-//    __syncthreads() before the next row.  The row update waits on
-//    shared-memory loads, and 32 warps hide more of that than 16: 1024
-//    threads (64 registers, no spills) beat 512 (up to 128) by 13%, and
-//    keeping the row's VN indices in registers from pass 1 to pass 2 by
-//    another 11% (scripts/decoder_variants.py, H100 SXM at 700 W);
-//  * the messages of (row, zz) are packed kPer to a 32-bit word, the
-//    row's words of one zz side by side (an odd count of words, so a
-//    warp's loads and stores hit 32 banks): 3 loads and 3 stores per
-//    (row, zz) at 4 bits, owned by the thread of that (frame, zz);
+//    (frozen frames keep their state; a BF tail reactivates every frame
+//    and its first sweep refreezes the clean ones, which then neither
+//    flip nor count a round; a clean frame's decisions are en > 0 with or
+//    without a tail), so a block that leaves its loops when its own frames
+//    are frozen gives the counters a word-wide loop gives;
+//  * frames in lanes: the block's kF frames sit side by side.  en is
+//    frame-interleaved, the kF int8 values of a VN in one 32-bit word (kF
+//    4) or 16-bit half (kF 2), frame f in byte f; the check map likewise,
+//    a byte a frame of each check; and the messages of (row, zz) for the
+//    kF frames together, 16 bits an edge (4 frames x 4 bits, or 2 x 8),
+//    stored negated and, at 4 bits, biased by 8, so that they enter the
+//    lanes with one mask or byte permute.  One thread thus updates a check
+//    for all the block's frames: one address computation and one shared
+//    load per edge serve kF frames, and the arithmetic runs on packed
+//    registers (row_update): the clip of vn - m in 16-bit lanes (Hopper's
+//    DPX __viaddmax_s16x2 / __viaddmin_s16x2, a sum and a max or min in
+//    one instruction), then signs, magnitudes, min1 / min2, the parity
+//    and the selects of pass 2 in byte lanes (a byte compare is a biased
+//    add whose bit 7 prmt replicates; FAID's 8-entry LUT is one prmt for
+//    four frames).  What differs by frame is a per-byte select: EF 1's
+//    and EF 2's floor row, EF 2's erasure, selective OMS's offsets, and in
+//    frame mode a frozen frame's bytes, written back unchanged.  The
+//    sweeps read a word for all the frames likewise (hard_bytes);
+//  * kThreads = 1024 threads: a quad of adjacent threads takes one check
+//    of the row, lane q the message words q, q + 4, q + 8 of its (row,
+//    zz) (two edges a word, at most 6 edges a lane), and two
+//    __shfl_xor_sync steps combine min1, min2 and the parity; 256 checks
+//    fill the block on 50G-PON.  Within a block row each VN is touched by
+//    exactly one check (a column appears once per row and z -> (z + s) mod
+//    Z is a bijection), so a row update needs no atomics, only a
+//    __syncthreads() before the next row.  A (row, zz) takes 4 x an odd
+//    number of words, side by side, so that a warp's 8 checks x 4 lanes
+//    load and store 32 banks; the quad keeps the row's VN indices,
+//    contributions and magnitudes in registers from pass 1 to pass 2;
 //  * after MP the message region holds the BF tail's state (bf_tail): a
 //    byte per VN (the hard decision, the 2B1C reliability bit, the post-MP
 //    decision), a copy of the check map for the round's flips to toggle,
@@ -106,17 +121,19 @@
 //    shifts, the message offsets, the voting columns' adjacency, the LUT
 //    rows), so the same kernel also runs a toy code; kMaxDeg bounds the
 //    per-thread register arrays of one row and the wrapper checks it.
-// What holds it back now (H100 SXM at 700 W, FAID_DTBF at 4.0 dB, kernel
-// F at 34% of its operation bound): a cluster of 8 needs 8 SMs of one
-// GPC, and 15 fit at once, so 64 words run in 5 waves on 120 SMs; a
-// barrier a row and shared-memory latency within the row; a sweep that
+// What holds it back: a cluster of 8 needs 8 SMs of one GPC, and 15 fit
+// at once, so 64 words run in 5 waves on 120 SMs; a barrier a row, and
+// within the row the quad's shared loads of en, whose four columns meet
+// at unrelated shifts (bank conflicts the code decides); a sweep that
 // finds the word clean re-reads every edge; kernel F's prologue draws on
 // those 120 SMs too.  Where tails run (FAID-2B1C at 3.6 dB, ~10 rounds a
-// word), MP is still ~88% of F's time: a tail round takes ~0.05 ms of a
-// batch of 2048 frames, its opening sweep ~0.03 ms once (chip_smoke.py
-// phase 25).
-// All arithmetic is int32 with the reference's int8 saturations kept
-// explicit; there is no floating point in the kernel.
+// word) a tail round takes ~0.05 ms of a batch of 2048 frames, its
+// opening sweep ~0.03 ms once (chip_smoke.py phase 25).
+// All arithmetic is exact integer arithmetic with the reference's int8
+// saturations kept explicit; there is no floating point in the kernel.
+// Each packed step keeps its lanes apart: a byte lane's values stay
+// below 128 where bytes are added or compared, so no carry or borrow
+// crosses a lane (the wrapper refuses check-node constants outside int8).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -163,10 +180,11 @@ struct CodeArgs {
   int n_var, n_info, z, n_rows, n_entries, punct_start, max_iter, stop_early;
   int factor_1, factor_2, offset, sign_backtrack, floor_err_count, floor_iter_thresh;
   int n_vote, gamma, bf_max_iter, delta, l0_max, l1_max, alpha, vote_cap, reliability;
-  const int32_t* msg_off;     // [n_rows + 1] first message word of each row
-                              //   in a frame's region (row r: z groups of
-                              //   (msg_off[r+1] - msg_off[r]) / z words)
-  int msg_words;              // words of a frame's message region
+  const int32_t* msg_off;     // [n_rows + 1] first word of each row in the
+                              //   block's message region (row r: z groups
+                              //   of (msg_off[r+1] - msg_off[r]) / z words,
+                              //   the kF frames' messages of (r, zz))
+  int msg_words;              // words of the block's message region
   const int32_t* ef_ptr;      // [n_entries] EF 2: the first adjacency entry of
                               //   the entry's erasing column, -1 where the
                               //   entry erases nothing
@@ -202,14 +220,14 @@ template <int kStyle>
 constexpr bool kSwapsLut = kStyle == kFaidEf1 || kStyle == kFaidEf2;
 
 // The dynamic shared memory of a block of `frames` frames: en, rounded
-// to 16 bytes, then the message words, then the check map where the
-// style or a BF tail keeps one.  ops/cuda_decoder.py `launch_plan`
+// to 16 bytes, then the block's message words, then the check map where
+// the style or a BF tail keeps one.  ops/cuda_decoder.py `launch_plan`
 // computes the same.
 __host__ __device__ inline size_t en_bytes(int frames, int n_var) {
   return (static_cast<size_t>(frames) * n_var + 15) & ~static_cast<size_t>(15);
 }
 __host__ __device__ inline size_t smem_bytes(int frames, const CodeArgs& a, bool map) {
-  return en_bytes(frames, a.n_var) + static_cast<size_t>(frames) * a.msg_words * 4 +
+  return en_bytes(frames, a.n_var) + static_cast<size_t>(a.msg_words) * 4 +
          (map ? static_cast<size_t>(frames) * a.n_rows * a.z : 0);
 }
 
@@ -237,13 +255,107 @@ __device__ __forceinline__ int vn_index(const CodeArgs& a, int ge, int zz) {
   return __ldg(a.ent_col + ge) * a.z + wrap(zz + __ldg(a.ent_shift + ge), a.z);
 }
 
-// Parity of check (r, zz) over bit(v) of its VNs.
-template <typename Bit>
-__device__ __forceinline__ int check_parity(const CodeArgs& a, int r, int zz, Bit bit) {
-  int acc = 0;
+// ---- frames in lanes: the block's kF frames in the bytes of a word,
+// frame f in byte f (kF = 2: bytes 2 and 3 are zero on a load, and the
+// lanes' results there are never stored).
+
+// Element i of an array in lanes (en, MP's check map): kF bytes.
+template <int kF>
+__device__ __forceinline__ uint32_t load_lanes(const uint8_t* p, int i) {
+  if constexpr (kF == 4) return reinterpret_cast<const uint32_t*>(p)[i];
+  else return reinterpret_cast<const uint16_t*>(p)[i];
+}
+template <int kF>
+__device__ __forceinline__ void store_lanes(uint8_t* p, int i, uint32_t w) {
+  if constexpr (kF == 4) reinterpret_cast<uint32_t*>(p)[i] = w;
+  else reinterpret_cast<uint16_t*>(p)[i] = static_cast<uint16_t>(w);
+}
+__device__ __forceinline__ int frame_byte(uint32_t w, int f) {
+  return static_cast<int8_t>(w >> 8 * f);
+}
+
+// prmt.b32 in PTX's default mode, where a selector nibble with its top
+// bit set replicates the sign of the byte it selects
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(s));
+  return r;
+}
+// 0xff in each byte whose bit 7 is set, else 0
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t x) { return prmt(x, 0u, 0xBA98u); }
+// a where the mask's bits are set, else b
+__device__ __forceinline__ uint32_t bsel(uint32_t m, uint32_t a, uint32_t b) {
+  return (a & m) | (b & ~m);
+}
+// 0xff in each byte where x >= y; every byte of x and y is below 128
+__device__ __forceinline__ uint32_t ge_bytes(uint32_t x, uint32_t y) {
+  return sign_bytes(x + 0x80808080u - y);
+}
+// bytes 2p and 2p + 1 of w as two 16-bit lanes, sign- or zero-extended
+__device__ __forceinline__ uint32_t lanes_sx(uint32_t w, int p) {
+  return prmt(w, 0u, p ? 0xB3A2u : 0x9180u);
+}
+__device__ __forceinline__ uint32_t lanes_zx(uint32_t w, int p) {
+  return prmt(w, 0u, p ? 0x4342u : 0x4140u);
+}
+// the low bytes of the 16-bit lanes of frames 0-1 and 2-3
+__device__ __forceinline__ uint32_t lane_bytes(uint32_t l01, uint32_t l23) {
+  return prmt(l01, l23, 0x6420u);
+}
+__device__ __forceinline__ uint32_t splat16(int x) {
+  return (static_cast<uint32_t>(x) & 0xffffu) * 0x10001u;
+}
+// min(x, y) in each 16-bit lane
+__device__ __forceinline__ uint32_t min16(uint32_t x, uint32_t y) {
+  uint32_t r;
+  asm("min.s16x2 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(y));
+  return r;
+}
+// min(max(x + y, lo), hi) in each 16-bit lane: the clip of a sum in two
+// instructions (Hopper's DPX add-max, then a min)
+__device__ __forceinline__ uint32_t clip_sum(uint32_t x, uint32_t y, uint32_t lo, uint32_t hi) {
+  return min16(__viaddmax_s16x2(x, y, lo), hi);
+}
+// min(max(x + y, lo) + c, hi): the same with a bias c taken off between
+__device__ __forceinline__ uint32_t clip_sum(uint32_t x, uint32_t y, uint32_t lo, uint32_t c,
+                                             uint32_t hi) {
+  return __viaddmin_s16x2(__viaddmax_s16x2(x, y, lo), c, hi);
+}
+// bit 7 of each byte: the byte is > 0, a hard 1
+__device__ __forceinline__ uint32_t hard_bytes(uint32_t w) {
+  return ((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) & ~w & 0x80808080u;
+}
+
+// The parity of check (r, zz) over the decisions en > 0 of the block's
+// frames: bit 7 of byte f, frame f's.
+template <int kF>
+__device__ __forceinline__ uint32_t check_parity(const uint8_t* en, const CodeArgs& a, int r,
+                                                 int zz) {
+  uint32_t acc = 0;
   const int e1 = __ldg(a.row_ptr + r + 1);
-  for (int e = __ldg(a.row_ptr + r); e < e1; ++e) acc ^= bit(vn_index(a, e, zz));
+  for (int e = __ldg(a.row_ptr + r); e < e1; ++e)
+    acc ^= hard_bytes(load_lanes<kF>(en, vn_index(a, e, zz)));
   return acc;
+}
+
+// The frames whose bit 7 is set in w, as bits 0 .. kF - 1.
+__device__ __forceinline__ int frame_bits(uint32_t w) {
+  return static_cast<int>(((w >> 7) & 0x01010101u) * 0x10204080u >> 28);
+}
+
+// Each thread's per-frame values v[f] summed over the warp (their maximum
+// with kMax) and added into s[f] (maxed, where above 1) by one shared
+// atomic a warp and frame.  Every thread of the block calls it, converged.
+template <int kF, bool kMax = false>
+__device__ __forceinline__ void warp_flush(const int (&v)[kF], int* s) {
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    const int t = kMax ? __reduce_max_sync(0xffffffffu, v[f]) : __reduce_add_sync(0xffffffffu, v[f]);
+    if ((threadIdx.x & 31) == 0 && (kMax ? t > 1 : t != 0)) {
+      if (kMax) atomicMax(&s[f], t);
+      else atomicAdd(&s[f], t);
+    }
+  }
 }
 
 // Group mode: the OR of every thread's `mine` over the word's cluster.
@@ -279,14 +391,14 @@ __device__ __forceinline__ bool decide(int mine, int* s_or, int& slot) {
 // thread's flag.  A thread that finds one marks `seen`, this call's
 // cluster_or slot, in every block of the word, and every thread of the
 // word stops at the mark: one check is enough to keep the word going.
+// An item is a check of all the block's frames.
 template <int kF>
-__device__ inline int any_unsat(const int8_t* en, const CodeArgs& a, volatile int* seen) {
-  const int z = a.z, per_frame = a.n_rows * z;
+__device__ inline int any_unsat(const uint8_t* en, const CodeArgs& a, volatile int* seen) {
+  const int z = a.z, checks = a.n_rows * z;
   int found = 0;
-  for (int i = threadIdx.x; i < kF * per_frame && !found && !*seen; i += kThreads) {
-    const int f = i / per_frame, j = i - f * per_frame, r = j / z;
-    const int8_t* enf = en + f * a.n_var;
-    found = check_parity(a, r, j - r * z, [&](int v) { return enf[v] > 0; });
+  for (int j = threadIdx.x; j < checks && !found && !*seen; j += kThreads) {
+    const int r = j / z;
+    found = (check_parity<kF>(en, a, r, j - r * z) & 0x80808080u) != 0;
     if (found) {
       cg::cluster_group cl = cg::this_cluster();
       for (int b = 0; b < kGroup / kF; ++b)
@@ -296,55 +408,59 @@ __device__ inline int any_unsat(const int8_t* en, const CodeArgs& a, volatile in
   return found;
 }
 
-// Each block frame's unsatisfied-check map from en > 0 into `unsat`,
-// and its count into s_cnt; true when any check of the word is
-// unsatisfied.  Frame mode sweeps the active frames only and leaves each
+// The block's unsatisfied-check map from en > 0 into `unsat`, in lanes (a
+// byte 0 or 1 a frame of each check), and each frame's count into s_cnt;
+// true when any check of the word is unsatisfied.  Frame mode counts the
+// active frames only (a frozen frame's map reads 0) and leaves each
 // frame's new flag (count > 0) in s_act.
 template <bool kFrame, int kF, int kCl>
-__device__ inline bool word_map(const int8_t* en, uint8_t* unsat, int* s_cnt, int* s_act,
+__device__ inline bool word_map(const uint8_t* en, uint8_t* unsat, int* s_cnt, int* s_act,
                                 int* s_or, int& slot, const CodeArgs& a) {
-  const int z = a.z, per_frame = a.n_rows * z;
+  const int z = a.z, checks = a.n_rows * z;
+  uint32_t act = 0;
+#pragma unroll
+  for (int f = 0; f < kF; ++f) act |= (!kFrame || s_act[f] ? 1u : 0u) << 8 * f;
   if (threadIdx.x < kF) s_cnt[threadIdx.x] = 0;
   __syncthreads();
-  int found = 0;
-  for (int f = 0; f < kF; ++f) {
-    if (kFrame && !s_act[f]) continue;
-    const int8_t* enf = en + f * a.n_var;
-    int cnt = 0;
-    for (int j = threadIdx.x; j < per_frame; j += kThreads) {
-      const int r = j / z;
-      const int acc = check_parity(a, r, j - r * z, [&](int v) { return enf[v] > 0; });
-      unsat[f * per_frame + j] = static_cast<uint8_t>(acc);
-      cnt += acc;
-    }
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&s_cnt[f], cnt);
-    found |= cnt;
+  int cnt[kF] = {};
+  uint32_t found = 0;
+  for (int j = threadIdx.x; j < checks; j += kThreads) {
+    const int r = j / z;
+    const uint32_t bits = (check_parity<kF>(en, a, r, j - r * z) >> 7) & act;
+    store_lanes<kF>(unsat, j, bits);
+    found |= bits;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) cnt[f] += (bits >> 8 * f) & 1;
   }
-  const bool any = decide<kFrame, kCl>(found, s_or, slot);
+  warp_flush<kF>(cnt, s_cnt);
+  const bool any = decide<kFrame, kCl>(found != 0, s_or, slot);
   if (kFrame && threadIdx.x < kF) s_act[threadIdx.x] = s_cnt[threadIdx.x] > 0;
   return any;
 }
 
 // Frame mode's sweep for the styles without a map (FAID/EF 0, NMS): each
 // active frame's "any unsatisfied check" into s_act, with an early exit
-// per frame once one is found; true when any frame of the block is dirty.
+// once every active frame is found dirty (s_dirty, a bit a frame); true
+// when any frame of the block is dirty.
 template <int kF>
-__device__ inline bool frame_flags(const int8_t* en, int* s_act, int* s_dirty,
+__device__ inline bool frame_flags(const uint8_t* en, int* s_act, int* s_dirty,
                                    const CodeArgs& a) {
-  const int z = a.z, per_frame = a.n_rows * z;
-  if (threadIdx.x < kF) s_dirty[threadIdx.x] = 0;
+  const int z = a.z, checks = a.n_rows * z;
+  int act = 0;
+#pragma unroll
+  for (int f = 0; f < kF; ++f) act |= (s_act[f] ? 1 : 0) << f;
+  if (threadIdx.x == 0) *s_dirty = 0;
   __syncthreads();
   volatile int* dirty = s_dirty;
-  for (int i = threadIdx.x; i < kF * per_frame; i += kThreads) {
-    const int f = i / per_frame;
-    if (!s_act[f] || dirty[f]) continue;
-    const int j = i - f * per_frame, r = j / z;
-    const int8_t* enf = en + f * a.n_var;
-    if (check_parity(a, r, j - r * z, [&](int v) { return enf[v] > 0; })) dirty[f] = 1;
+  for (int j = threadIdx.x; j < checks; j += kThreads) {
+    const int d = *dirty;
+    if ((d & act) == act) break;
+    const int r = j / z;
+    const int fresh = frame_bits(check_parity<kF>(en, a, r, j - r * z)) & act & ~d;
+    if (fresh) atomicOr(s_dirty, fresh);
   }
   __syncthreads();
-  const int mine = threadIdx.x < kF ? s_dirty[threadIdx.x] : 0;
+  const int mine = threadIdx.x < kF ? (*s_dirty >> threadIdx.x) & 1 : 0;
   if (threadIdx.x < kF) s_act[threadIdx.x] = mine;
   return __syncthreads_or(mine);
 }
@@ -361,19 +477,73 @@ __device__ __forceinline__ int offsel(int m, bool eff, int f1, int f2) {
 }
 
 // EF 2: the flip votes of bit j of an erasing column, from adjacency
-// entry p on (its 3 checks), in one frame's check map uf.
-__device__ __forceinline__ int ef_votes(const uint8_t* uf, int p, int j, const CodeArgs& a) {
+// entry p on (its 3 checks), in MP's check map: a byte a frame.
+template <int kF>
+__device__ __forceinline__ uint32_t ef_votes(const uint8_t* unsat, int p, int j,
+                                             const CodeArgs& a) {
   const int z = a.z;
-  int votes = 0;
+  uint32_t votes = 0;
   for (int k = p; k < p + 3; ++k)
-    votes += uf[__ldg(a.ef_row + k) * z + wrap(j - __ldg(a.ef_shift + k) + z, z)];
+    votes += load_lanes<kF>(unsat, __ldg(a.ef_row + k) * z + wrap(j - __ldg(a.ef_shift + k) + z, z));
   return votes;
 }
 
-// Block row r of one layered iteration for the block's frames.  in_floor,
-// s_lme (per frame: few unsatisfied checks) and the check map open the
-// error-floor window of the map-keeping styles.  Frame mode skips the
-// frozen frames (s_act 0): not a byte of their state is read or written.
+// What a row update reads that is fixed for an iteration, in lanes.
+struct IterLanes {
+  uint32_t lut[2], lut_ef[2];   // FAID's row and error-floor row, a byte an entry
+  uint32_t floor;   // 0xff in the bytes of the frames in the floor window
+                    //   with few unsatisfied checks (the map-keeping styles)
+  uint32_t act;     // frame mode: 0xff in the bytes of the active frames
+  uint32_t bt;      // FAID: 0x7f7f7f7f with the sign backtrack, else 0x80808080
+};
+
+// The check-node constants c = cste(m) of the kF frames of m (a min1 or
+// min2, a byte a frame) and -c, a byte a frame; `factor` is NMS's, eff
+// the frames in the floor window.  The wrapper keeps c within int8.
+template <int kStyle, int kF>
+__device__ __forceinline__ void constants(uint32_t m, uint32_t eff, int factor, const CodeArgs& a,
+                                          uint32_t& c, uint32_t& nc) {
+  if constexpr (kStyle == kNms || kStyle == kOmsSel) {
+    c = nc = 0;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      const int mf = (m >> 8 * f) & 0xff;
+      // arithmetic >> as the reference's int16 lanes and JAX's int32
+      const int x = kStyle == kNms
+                        ? min(sat8((mf * factor) >> 5), kSatMsg)
+                        : min(offsel(mf, (eff >> 8 * f) & 1, a.factor_1, a.factor_2), kSatMsg);
+      c |= (static_cast<uint32_t>(x) & 0xffu) << 8 * f;
+      nc |= (static_cast<uint32_t>(-x) & 0xffu) << 8 * f;
+    }
+  } else {
+    // min(m - offset, 7) and max(offset - m, -7) in 16-bit lanes, the
+    // latter biased by 0x4000 so that the subtraction borrows nothing
+    const uint32_t off = splat16(-a.offset), bias = splat16(0x4000 + a.offset);
+    uint32_t cl[2] = {}, nl[2] = {};
+#pragma unroll
+    for (int p = 0; p < kF / 2; ++p) {
+      const uint32_t mp = lanes_zx(m, p);
+      cl[p] = __viaddmin_s16x2(mp, off, splat16(kSatMsg));
+      nl[p] = __viaddmax_s16x2(bias - mp, splat16(-0x4000), splat16(-kSatMsg));
+    }
+    c = lane_bytes(cl[0], cl[1]);
+    nc = lane_bytes(nl[0], nl[1]);
+  }
+}
+
+// Block row r of one layered iteration for the block's frames, in lanes:
+// a quad of threads a check (zz = i / 4), lane q the message words q, q +
+// 4, q + 8 of (r, zz) and their edges 2q, 2q + 1, 2q + 8, 2q + 9, 2q + 16,
+// 2q + 17, each for all kF frames at once.  it.floor and the check map
+// open the error-floor window of the map-keeping styles.  Frame mode
+// writes a frozen frame's bytes back as they were (it.act).
+//
+// Pass 1: the contribution v = vn - m, clipped in 16-bit lanes, packed to
+// bytes (vcp, kept for pass 2), its sign (negs: edge k's at bit 7 - k of
+// each frame's byte), its magnitude, and the row's min1 / min2 over the
+// lane's edges, which two shuffles a quad combine with the parity.
+// Pass 2: the new message, cste1 or cste2 signed, chosen per byte by
+// selects; en = clip(v + message), and the message stored negated.
 //
 // EF 2 (faid_tpu/ops/cn_update.py:118-133) zeroes the first contribution
 // into a weight-3 VN an iteration where its flip votes (from the
@@ -384,138 +554,210 @@ __device__ __forceinline__ int ef_votes(const uint8_t* uf, int p, int j, const C
 // first such contribution is the one from the column's lowest row: the
 // entries of a.ef_ptr >= 0.  No per-VN mark is kept.
 template <int kStyle, bool kFrame, int kBits, int kF>
-__device__ void row_update(int8_t* en, uint32_t* msg, const int* s_lut, const int* s_lut_ef,
-                           const uint8_t* unsat, const int* s_lme, const int* s_act,
-                           bool in_floor, int r, const CodeArgs& a) {
-  constexpr int kPer = 32 / kBits;                       // messages a word
-  constexpr int kWords = (kMaxDeg + kPer - 1) / kPer;    // a row's, at most
-  constexpr uint32_t kMask = (1u << kBits) - 1;
+__device__ void row_update(uint8_t* en, uint32_t* msg, const uint8_t* unsat,
+                           const IterLanes& it, int r, const CodeArgs& a) {
+  constexpr int kSlots = (kMaxDeg + 7) / 8;   // message words a lane
+  constexpr int kEdges = 2 * kSlots;          // and their edges
+  // a stored message is kBias - m: 4 bits biased to 1..15, or an int8
+  constexpr int kBias = kBits == 4 ? 8 : 0;
+  constexpr int kHi = kIsFaid<kStyle> ? kSatVar : 127;
   const int z = a.z;
   const int e0 = __ldg(a.row_ptr + r), deg = __ldg(a.row_ptr + r + 1) - e0;
-  const int odd = deg & 1;
-  const int m0 = __ldg(a.msg_off + r), wr = (__ldg(a.msg_off + r + 1) - m0) / z;
-  for (int i = threadIdx.x; i < kF * z; i += kThreads) {
-    const int f = i / z, zz = i - f * z;
-    if (kFrame && !s_act[f]) continue;
-    int8_t* enf = en + f * a.n_var;
-    uint32_t* mw = msg + f * a.msg_words + m0 + zz * wr;
-    bool eff = false;
-    if constexpr (kKeepsMap<kStyle>)
-      eff = in_floor && s_lme[f] && unsat[(f * a.n_rows + r) * z + zz];
-    const int* lut = s_lut;
-    if constexpr (kSwapsLut<kStyle>) lut = eff ? s_lut_ef : s_lut;
-    // EF 2: the row's edges whose contribution is erased, found before
-    // pass 1 so that its registers are free again there
+  // the row's words a (row, zz): 4 x an odd number (ops/cuda_decoder.py
+  // `_row_words`), two edges a word
+  const int m0 = __ldg(a.msg_off + r), wr = 4 * ((deg + 7) / 8 | 1);
+  const uint32_t lo = splat16(kBias - kSatVar), unbias = splat16(-kBias), hi = splat16(kHi);
+  const uint32_t odd = deg & 1 ? 0x80808080u : 0u;
+  const unsigned quad = 0xfu << (threadIdx.x & 28);
+  for (int i = threadIdx.x; i < 4 * z; i += kThreads) {
+    const int zz = i >> 2, q = i & 3;
+    uint32_t* mw = msg + m0 + zz * wr;
+    // the lane's entries: edge 2q + o at offset o
+    const int32_t* cols = a.ent_col + e0 + 2 * q;
+    const int32_t* shifts = a.ent_shift + e0 + 2 * q;
+    uint32_t eff = 0;   // the frames whose check is in the floor window
+    if constexpr (kKeepsMap<kStyle>) eff = it.floor & (load_lanes<kF>(unsat, r * z + zz) * 0xffu);
+    // EF 2: the lane's edges whose contribution is erased, edge k's at bit
+    // 7 - k of each frame's byte, found before pass 1
     uint32_t erase = 0;
     if constexpr (kStyle == kFaidEf2) {
-      if (in_floor && s_lme[f]) {
-        const uint8_t* uf = unsat + f * a.n_rows * z;
+      if (it.floor) {
 #pragma unroll 1
-        for (int e = 0; e < deg; ++e) {
+        for (int k = 0; k < kEdges; ++k) {
+          const int e = 2 * q + 8 * (k >> 1) + (k & 1);
+          if (e >= deg) break;
           const int p = __ldg(a.ef_ptr + e0 + e);
-          if (p >= 0 && ef_votes(uf, p, wrap(zz + __ldg(a.ent_shift + e0 + e), z), a) >= 3)
-            erase |= 1u << e;
+          if (p >= 0) {
+            const uint32_t votes =
+                ef_votes<kF>(unsat, p, wrap(zz + __ldg(a.ent_shift + e0 + e), z), a);
+            erase |= ((votes + 0x7d7d7d7du) & it.floor & 0x80808080u) >> k;
+          }
         }
       }
     }
-    uint32_t words[kWords];
+    uint32_t words[kSlots];
 #pragma unroll
-    for (int j = 0; j < kWords; ++j) words[j] = j * kPer < deg ? mw[j] : 0u;
-    // the contributions, four int8 to a register (each is within
-    // [-31, 127]): a row's 24 then take 6 registers
-    uint32_t vcp[kMaxDeg / 4] = {};
-    uint32_t negs = 0;
-    int idx[kMaxDeg];   // the row's VNs, from pass 1 to pass 2
-    int parity = 0, min1 = kSatVar, min2 = kSatVar;
+    for (int s = 0; s < kSlots; ++s) words[s] = 8 * s + 2 * q < deg ? mw[q + 4 * s] : 0u;
+    int idx[kEdges];        // the lane's VNs, from pass 1 to pass 2
+    uint32_t vcp[kEdges];   // their contributions, a byte a frame
+    uint32_t cmp[kEdges];   // what pass 2 compares with min1
+    uint32_t negs = 0, min1 = 0x1f1f1f1fu, min2 = 0x1f1f1f1fu;
     // pass 1: contributions, signs, magnitudes, min1/min2
 #pragma unroll
-    for (int e = 0; e < kMaxDeg; ++e) {
+    for (int k = 0; k < kEdges; ++k) {
+      const int o = 8 * (k >> 1) + (k & 1), e = 2 * q + o;
       if (e < deg) {
-        idx[e] = vn_index(a, e0 + e, zz);
-        const int vn = enf[idx[e]];
-        // the message, sign-extended from kBits
-        const int m = static_cast<int>(words[e / kPer] << (32 - kBits * (e % kPer + 1))) >>
-                      (32 - kBits);
-        int v, neg, mag;
-        if constexpr (kIsFaid<kStyle>) {
-          // clipped to +-31; a zero contribution may borrow En's sign
-          v = min(max(max(vn - m, -128), -kSatVar), kSatVar);
-          if constexpr (kStyle == kFaidEf2) v = (erase >> e) & 1u ? 0 : v;
-          neg = (a.sign_backtrack && v == 0 ? vn : v) < 0;
-          mag = lut[min(abs(v), 7)];
+        idx[k] = __ldg(cols + o) * z + wrap(zz + __ldg(shifts + o), z);
+        const uint32_t w = load_lanes<kF>(en, idx[k]);
+        // v = clip(vn - m): FAID to +-31; NMS and OMS the int8 saturation
+        // and the lower clip, up to 31 + 7
+        uint32_t vb;
+        if constexpr (kBits == 4) {
+          const uint32_t x = (k & 1 ? words[k >> 1] >> 4 : words[k >> 1]) & 0x0f0f0f0fu;
+          vb = lane_bytes(clip_sum(lanes_sx(w, 0), lanes_zx(x, 0), lo, unbias, hi),
+                          clip_sum(lanes_sx(w, 1), lanes_zx(x, 1), lo, unbias, hi));
         } else {
-          // the int8 saturation, then only the lower clip: up to 31 + 7
-          v = max(min(vn - m, 127), -kSatVar);
-          neg = v < 0;
-          mag = kStyle == kNms ? abs(v) : min(abs(v), kSatMsg);
+          const uint32_t x = prmt(words[k >> 1], 0u, k & 1 ? 0xB3A2u : 0x9180u);
+          vb = lane_bytes(clip_sum(lanes_sx(w, 0), x, lo, hi), 0u);
         }
-        vcp[e >> 2] |= static_cast<uint32_t>(v & 0xff) << (8 * (e & 3));
-        negs |= static_cast<uint32_t>(neg) << e;
-        parity ^= neg;
-        min2 = min(min2, max(min1, mag));
-        min1 = min(mag, min1);
+        if constexpr (kStyle == kFaidEf2) vb &= ~sign_bytes(erase << k);
+        vcp[k] = vb;
+        // |v| = (v ^ s) + (s & 1) a byte at a time: no carry leaves a byte
+        const uint32_t sb = sign_bytes(vb), av = vb ^ sb, one = sb & 0x01010101u;
+        uint32_t neg = sb, mag;
+        if constexpr (kIsFaid<kStyle>) {
+          // the LUT at min(|v|, 7): |v| + 0x78 has bit 7 where |v| >= 8;
+          // the four indices go to prmt's selector nibbles in frame order
+          const uint32_t y = av + one + 0x78787878u;
+          const uint32_t ix = prmt((y | sign_bytes(y)) & 0x07070707u, 0u, 0x3120u);
+          const uint32_t sel = ix | ix >> 12;
+          mag = prmt(it.lut[0], it.lut[1], sel);
+          if constexpr (kSwapsLut<kStyle>)
+            mag = bsel(eff, prmt(it.lut_ef[0], it.lut_ef[1], sel), mag);
+          // a zero contribution borrows En's sign (|v| + it.bt has bit 7
+          // clear only at |v| = 0 with the backtrack)
+          neg |= ~(av + one + it.bt) & w;
+          cmp[k] = mag;
+        } else {
+          const uint32_t absv = av + one;
+          cmp[k] = absv;
+          if constexpr (kStyle == kNms) {
+            mag = absv;
+          } else {
+            const uint32_t y = absv + 0x78787878u;
+            mag = (y | sign_bytes(y)) & 0x07070707u;
+          }
+        }
+        negs |= (neg & 0x80808080u) >> k;
+        const uint32_t g = ge_bytes(min1, mag), big = bsel(g, min1, mag);
+        min1 = bsel(g, mag, min1);
+        min2 = bsel(ge_bytes(min2, big), big, min2);
       }
     }
-    int cste1, cste2;
-    if constexpr (kStyle == kNms) {
-      // arithmetic >> as the reference's int16 lanes and JAX's int32
-      cste1 = min(sat8((min2 * a.factor_2) >> 5), kSatMsg);
-      cste2 = min(sat8((min1 * a.factor_1) >> 5), kSatMsg);
-    } else if constexpr (kStyle == kOmsSel) {
-      cste1 = min(offsel(min2, eff, a.factor_1, a.factor_2), kSatMsg);
-      cste2 = min(offsel(min1, eff, a.factor_1, a.factor_2), kSatMsg);
-    } else {
-      cste1 = min(min2 - a.offset, kSatMsg);
-      cste2 = min(min1 - a.offset, kSatMsg);
+    // the quad's min1, min2 and parity (bit 7 of each byte: the XOR of the
+    // byte's sign bits)
+    uint32_t par = negs;
+    par ^= par << 1;
+    par ^= par << 2;
+    par ^= par << 4;
+#pragma unroll
+    for (int d = 1; d <= 2; d <<= 1) {
+      par ^= __shfl_xor_sync(quad, par, d);
+      const uint32_t o1 = __shfl_xor_sync(quad, min1, d), o2 = __shfl_xor_sync(quad, min2, d);
+      const uint32_t g = ge_bytes(min1, o1), big = bsel(g, min1, o1);
+      min1 = bsel(g, o1, min1);
+      const uint32_t m2 = bsel(ge_bytes(min2, o2), o2, min2);
+      min2 = bsel(ge_bytes(big, m2), m2, big);
     }
+    // each edge's new sign, parity ^ own ^ odd degree, at its bit
+    negs ^= (((par ^ odd) & 0x80808080u) >> 5) * 0x3fu;
+    // cste1 (from min2) where the edge's magnitude is min1, else cste2,
+    // and their negations
+    uint32_t c1, n1, c2, n2;
+    constants<kStyle, kF>(min2, eff, a.factor_2, a, c1, n1);
+    constants<kStyle, kF>(min1, eff, a.factor_1, a, c2, n2);
+    const uint32_t min1p = min1 + 0x01010101u;
+    const uint32_t wact = kBits == 4 ? it.act : prmt(it.act, 0u, 0x1010u);
     // pass 2: new messages and en.  FAID compares the mapped magnitude
-    // with min1, NMS and OMS the raw |contribution|.  A message is
-    // stored in kBits (the wrapper picks 4 only where |message| <= 7
-    // holds, else 8, the int8 store's wrap).
+    // with min1, NMS and OMS the raw |contribution|.
 #pragma unroll
-    for (int j = 0; j < kWords; ++j) words[j] = 0u;
+    for (int s = 0; s < kSlots; ++s) {
+      uint32_t st[2] = {};   // -message, a byte a frame
 #pragma unroll
-    for (int e = 0; e < kMaxDeg; ++e) {
-      if (e < deg) {
-        const int v = static_cast<int8_t>(vcp[e >> 2] >> (8 * (e & 3)));
-        int cmp;
-        if constexpr (kIsFaid<kStyle>) cmp = lut[min(abs(v), 7)];
-        else cmp = abs(v);
-        const int vres = cmp == min1 ? cste1 : cste2;
-        const int neg = parity ^ static_cast<int>((negs >> e) & 1u) ^ odd;
-        const int nm = neg ? -vres : vres;
-        words[e / kPer] |= (static_cast<uint32_t>(nm) & kMask) << (kBits * (e % kPer));
-        enf[idx[e]] = static_cast<int8_t>(min(max(v + nm, -kSatVar), kSatVar));
+      for (int h = 0; h < 2; ++h) {
+        const int k = 2 * s + h, e = 2 * q + 8 * s + h;
+        if (e < deg) {
+          const uint32_t two = sign_bytes(cmp[k] + 0x80808080u - min1p);   // cmp != min1
+          const uint32_t pos = bsel(two, c2, c1), negm = bsel(two, n2, n1);
+          const uint32_t ne = sign_bytes(negs << k);
+          const uint32_t nm = bsel(ne, negm, pos);
+          st[h] = bsel(ne, pos, negm);
+          const uint32_t lo31 = splat16(-kSatVar), hi31 = splat16(kSatVar);
+          uint32_t enw;
+          if constexpr (kF == 4)
+            enw = lane_bytes(clip_sum(lanes_sx(vcp[k], 0), lanes_sx(nm, 0), lo31, hi31),
+                             clip_sum(lanes_sx(vcp[k], 1), lanes_sx(nm, 1), lo31, hi31));
+          else
+            enw = lane_bytes(clip_sum(lanes_sx(vcp[k], 0), lanes_sx(nm, 0), lo31, hi31), 0u);
+          if constexpr (kFrame) enw = bsel(it.act, enw, load_lanes<kF>(en, idx[k]));
+          store_lanes<kF>(en, idx[k], enw);
+        }
+      }
+      if (8 * s + 2 * q < deg) {
+        // 4 bits: byte f holds frame f's nibbles, 8 - m, edge 2j low;
+        // 8 bits: the bytes -m of (2j, f0), (2j, f1), (2j + 1, f0), (2j + 1, f1)
+        uint32_t word = kBits == 4
+                            ? ((st[0] & 0x0f0f0f0fu) | (st[1] << 4 & 0xf0f0f0f0u)) ^ 0x88888888u
+                            : prmt(st[0], st[1], 0x5410u);
+        if constexpr (kFrame) word = bsel(wact, word, words[s]);
+        mw[q + 4 * s] = word;
       }
     }
-#pragma unroll
-    for (int j = 0; j < kWords; ++j)
-      if (j * kPer < deg) mw[j] = words[j];
   }
 }
 
-// The block's LLRs into en, the punctured tail zeroed; 16 bytes at a
-// time where the rows allow it.
+// The block's LLRs into en, in lanes, the punctured tail zeroed: a
+// thread reads 4 bytes of each frame's row and writes the 4 VNs' words
+// (a 4 x 4 byte transpose) where the rows allow it.
 template <int kF>
-__device__ inline void llr_ingest(int8_t* en, const int8_t* in, const CodeArgs& a) {
-  const int n = a.n_var, total = kF * n;
-  if ((n & 15) == 0 && (reinterpret_cast<uintptr_t>(in) & 15) == 0) {
-    const uint4* in16 = reinterpret_cast<const uint4*>(in);
-    uint4* en16 = reinterpret_cast<uint4*>(en);
-    for (int i = threadIdx.x; i < total / 16; i += kThreads) {
-      uint4 v = in16[i];
-      const int b = (i * 16) % n;   // the chunk's first bit in its frame
-      if (b + 16 > a.punct_start) {
-        uint8_t* p = reinterpret_cast<uint8_t*>(&v);
+__device__ inline void llr_ingest(uint8_t* en, const int8_t* in, const CodeArgs& a) {
+  const int n = a.n_var;
+  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(in) & 3) == 0) {
+    for (int c = threadIdx.x; c < n / 4; c += kThreads) {
+      uint32_t row[4] = {};
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          if (b + j >= a.punct_start) p[j] = 0;
+      for (int f = 0; f < kF; ++f) row[f] = reinterpret_cast<const uint32_t*>(in + f * n)[c];
+      const uint32_t lo01 = prmt(row[0], row[1], 0x5140u), hi01 = prmt(row[0], row[1], 0x7362u);
+      const uint32_t lo23 = prmt(row[2], row[3], 0x5140u), hi23 = prmt(row[2], row[3], 0x7362u);
+      // VN 4c + j's word: byte j of each row
+      uint32_t w[4];
+      if constexpr (kF == 4) {
+        w[0] = prmt(lo01, lo23, 0x5410u);
+        w[1] = prmt(lo01, lo23, 0x7632u);
+        w[2] = prmt(hi01, hi23, 0x5410u);
+        w[3] = prmt(hi01, hi23, 0x7632u);
+      } else {
+        w[0] = lo01 & 0xffffu;
+        w[1] = lo01 >> 16;
+        w[2] = hi01 & 0xffffu;
+        w[3] = hi01 >> 16;
       }
-      en16[i] = v;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * c + j >= a.punct_start) w[j] = 0;
+      if constexpr (kF == 4)
+        reinterpret_cast<uint4*>(en)[c] = make_uint4(w[0], w[1], w[2], w[3]);
+      else
+        reinterpret_cast<uint2*>(en)[c] = make_uint2(w[0] | w[1] << 16, w[2] | w[3] << 16);
     }
   } else {
-    for (int i = threadIdx.x; i < total; i += kThreads)
-      en[i] = i % n >= a.punct_start ? 0 : in[i];
+    for (int v = threadIdx.x; v < n; v += kThreads) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int f = 0; f < kF; ++f)
+        w |= static_cast<uint32_t>(static_cast<uint8_t>(in[f * n + v])) << 8 * f;
+      store_lanes<kF>(en, v, v >= a.punct_start ? 0u : w);
+    }
   }
 }
 
@@ -525,18 +767,25 @@ __device__ inline void llr_ingest(int8_t* en, const int8_t* in, const CodeArgs& 
 // codeword bit, into en (the punctured tail zeroed), and adds its
 // ModCalErr info-bit errors and (even, odd) symbol errors into s_mb and
 // s_ms.  The per-bit code is kernel A's (staircase.cuh), and the bits
-// of a group of four stay in one thread, as in A, so the counts agree.
+// of a group of four stay in one thread, as in A; a thread takes a group
+// for all the block's frames, so that it writes the 4 VNs' words of en.
 template <int kF>
-__device__ inline void channel_ingest(int8_t* en, const int8_t* cw, size_t frame0,
+__device__ inline void channel_ingest(uint8_t* en, const int8_t* cw, size_t frame0,
                                       const int32_t* sp, int* s_mb, int* s_ms,
                                       const ChanArgs& c, const CodeArgs& a) {
   const int n = a.n_var, groups = (n + 3) / 4;
   const uint2 key = make_uint2(c.key_lo, c.key_hi);
-  for (int f = 0; f < kF; ++f) {
-    const size_t row = (frame0 + f) * static_cast<size_t>(n);
-    int8_t* enf = en + f * n;
-    int nb = 0, ns = 0;
-    for (int g = threadIdx.x; g < groups; g += kThreads) {
+  // each frame's counts, a byte a frame: a thread takes at most n / 4096
+  // groups, fewer than 30 where en fits shared memory, so a byte stays
+  // below 120
+  uint32_t nbs = 0, nss = 0;
+  for (int g = threadIdx.x; g < groups; g += kThreads) {
+    uint32_t wv[4] = {};   // VN 4g + j's word
+    // one frame at a time, as kernel A draws them (unrolled, the four
+    // frames' staircases only lengthen the build)
+#pragma unroll 1
+    for (int f = 0; f < kF; ++f) {
+      const size_t row = (frame0 + f) * static_cast<size_t>(n);
       const uint4 w = channel_words4(g, c.frame0 + static_cast<uint32_t>(frame0) + f,
                                      c.round_lo, c.round_hi, key);
       const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
@@ -550,45 +799,44 @@ __device__ inline void channel_ingest(int8_t* en, const int8_t* cw, size_t frame
           int err;
           const int q = staircase_bit(static_cast<int>(ws[j]), mask, sp, c.L, c.clip_lo,
                                       c.clip_hi, &err);
-          enf[bit] = static_cast<int8_t>(bit >= a.punct_start ? 0 : q);
+          if (bit < a.punct_start) wv[j] |= (static_cast<uint32_t>(q) & 0xffu) << 8 * f;
           e[j] = (bit < a.n_info) & err;
         }
       }
-      nb += e[0] + e[1] + e[2] + e[3];
-      ns += (e[0] | e[1]) + (e[2] | e[3]);          // QPSK: (even, odd) pairs
+      nbs += static_cast<uint32_t>(e[0] + e[1] + e[2] + e[3]) << 8 * f;
+      // QPSK: (even, odd) pairs
+      nss += static_cast<uint32_t>((e[0] | e[1]) + (e[2] | e[3])) << 8 * f;
     }
-    nb = __reduce_add_sync(0xffffffffu, nb);
-    ns = __reduce_add_sync(0xffffffffu, ns);
-    if ((threadIdx.x & 31) == 0 && (nb | ns)) {
-      atomicAdd(&s_mb[f], nb);
-      atomicAdd(&s_ms[f], ns);
+    if (4 * g + 3 < n) {
+      if constexpr (kF == 4)
+        reinterpret_cast<uint4*>(en)[g] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+      else
+        reinterpret_cast<uint2*>(en)[g] = make_uint2(wv[0] | wv[1] << 16, wv[2] | wv[3] << 16);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * g + j < n) store_lanes<kF>(en, 4 * g + j, wv[j]);
     }
   }
-}
-
-// Each thread's per-frame values v[f] summed over the warp (their maximum
-// with kMax) and added into s[f] (maxed, where above 1) by one shared
-// atomic a warp and frame.  Every thread of the block calls it, converged.
-template <int kF, bool kMax = false>
-__device__ __forceinline__ void warp_flush(const int (&v)[kF], int* s) {
+  int nb[kF], ns[kF];
 #pragma unroll
   for (int f = 0; f < kF; ++f) {
-    const int t = kMax ? __reduce_max_sync(0xffffffffu, v[f]) : __reduce_add_sync(0xffffffffu, v[f]);
-    if ((threadIdx.x & 31) == 0 && (kMax ? t > 1 : t != 0)) {
-      if (kMax) atomicMax(&s[f], t);
-      else atomicAdd(&s[f], t);
-    }
+    nb[f] = (nbs >> 8 * f) & 0xff;
+    ns[f] = (nss >> 8 * f) & 0xff;
   }
+  warp_flush<kF>(nb, s_mb);
+  warp_flush<kF>(ns, s_ms);
 }
 
 // The BF tail (faid_tpu/decoders/bf.py): static BF, DTBF or 2B1C-DTBF on
 // the decisions en > 0, at most bf_max_iter rounds, each opened by the
 // stop decision of the word (group mode) or of each frame (frame mode).
 // Returns the rounds (frame mode: thread f < kF, frame f's).  Its state
-// lies in the message region, free after MP (tail_bytes): hard[v], bit 0
-// the decision, bit 1 the 2B1C reliability bit, bit 3 the post-MP
-// decision (DTBF's hard_ch); the check map the flips toggle (tmap); the
-// vote tables.
+// lies in the message region, free after MP (tail_bytes), a frame after
+// another rather than in lanes: hard[f][v], bit 0 the decision, bit 1 the
+// 2B1C reliability bit, bit 3 the post-MP decision (DTBF's hard_ch); the
+// check map [f][check] in unsat (MP's map, in lanes, is not read again)
+// and the copy the flips toggle (tmap); the vote tables.
 //
 // The check map is kept up to date by the flips, not swept each round:
 // one opening sweep makes each frame's map (unsat) and count (s_cnt) from
@@ -614,15 +862,20 @@ __device__ __forceinline__ void warp_flush(const int (&v)[kF], int* s) {
 // barrier besides the decision's.  Frame mode: s_act marks the frames
 // dirty at the round's top; only they flip and run their machines.
 template <int kBf, bool kFrame, int kF, int kCl>
-__device__ inline int bf_tail(const int8_t* en, uint8_t* hard, uint8_t* unsat, int* s_cnt,
+__device__ inline int bf_tail(const uint8_t* en, uint8_t* hard, uint8_t* unsat, int* s_cnt,
                               int* s_act, int* s_or, int& slot, const CodeArgs& a) {
   __shared__ int s_th[kF], s_flip[kF];
   const int z = a.z, n = a.n_var, per_frame = a.n_rows * z;
-  for (int i = threadIdx.x; i < kF * n; i += kThreads) {
-    const int v = en[i];
-    int h = v > 0 ? 9 : 0;   // bits 0 and 3
-    if constexpr (kBf == kBf2b1c) h |= (v >= a.reliability || v <= -a.reliability) << 1;
-    hard[i] = static_cast<uint8_t>(h);
+  // hard[f][v] from the interleaved en, a VN's kF frames a thread
+  for (int v = threadIdx.x; v < n; v += kThreads) {
+    const uint32_t w = load_lanes<kF>(en, v);
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      const int e = frame_byte(w, f);
+      int h = e > 0 ? 9 : 0;   // bits 0 and 3
+      if constexpr (kBf == kBf2b1c) h |= (e >= a.reliability || e <= -a.reliability) << 1;
+      hard[f * n + v] = static_cast<uint8_t>(h);
+    }
   }
   if (a.bf_max_iter == 0) {
     __syncthreads();
@@ -812,9 +1065,9 @@ __device__ inline int bf_tail(const int8_t* en, uint8_t* hard, uint8_t* unsat, i
   return rounds;
 }
 
-// The buffers are separate __restrict__ parameters, and the row update
-// keeps its contributions packed: scripts/decoder_variants.py measured
-// both to matter when the state lived in global memory.
+// The buffers are separate __restrict__ parameters: the measurement
+// recorded in PERF.md section 6 found that to matter when the state lived
+// in global memory.
 template <int kOut, int kStyle, int kBf, bool kFrame, int kBits>
 __global__ void __launch_bounds__(kThreads, 1)
 decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
@@ -824,17 +1077,17 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
   constexpr int kF = kFrames<kBits>;
   constexpr int kCl = kCluster<kBits>;
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int s_lut[8], s_lut_ef[8];
+  __shared__ uint32_t s_lut[4];            // the iteration's FAID rows, a byte an entry
   __shared__ int s_cnt[kF], s_lme[kF];
   __shared__ int s_err[kF];
-  __shared__ int s_act[kF], s_dirty[kF];   // frame mode
+  __shared__ int s_act[kF], s_dirty;       // frame mode
   __shared__ int s_or[3];                  // group mode: cluster_or's slots
 
-  const int z = a.z, n = a.n_var;
+  const int n = a.n_var;
   const size_t frame0 = static_cast<size_t>(blockIdx.x) * kF;
-  int8_t* en = reinterpret_cast<int8_t*>(smem);                    // [kF][n]
+  uint8_t* en = smem;                                               // [n] in lanes
   uint32_t* msg = reinterpret_cast<uint32_t*>(smem + en_bytes(kF, n));
-  uint8_t* unsat = smem + en_bytes(kF, n) + static_cast<size_t>(kF) * a.msg_words * 4;
+  uint8_t* unsat = smem + en_bytes(kF, n) + static_cast<size_t>(a.msg_words) * 4;
   int slot = 0;   // cluster_or's slot
   if (threadIdx.x < 3) s_or[threadIdx.x] = 0;
 
@@ -860,7 +1113,9 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
   } else {
     llr_ingest<kF>(en, llr + frame0 * n, a);
   }
-  for (int i = threadIdx.x; i < kF * a.msg_words; i += kThreads) msg[i] = 0u;
+  // a zero message is stored as 8 at 4 bits (kBias - m)
+  const uint32_t zero = kBits == 4 ? 0x88888888u : 0u;
+  for (int i = threadIdx.x; i < a.msg_words; i += kThreads) msg[i] = zero;
   if (kFrame && threadIdx.x < kF) s_act[threadIdx.x] = 1;
   __syncthreads();
 
@@ -874,7 +1129,7 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
       bool dirty;
       if constexpr (kKeepsMap<kStyle>)
         dirty = word_map<kFrame, kF, kCl>(en, unsat, s_cnt, s_act, s_or, slot, a);
-      else if constexpr (kFrame) dirty = frame_flags<kF>(en, s_act, s_dirty, a);
+      else if constexpr (kFrame) dirty = frame_flags<kF>(en, s_act, &s_dirty, a);
       else dirty = cluster_or<kCl>(any_unsat<kF>(en, a, s_or + slot), s_or, slot);
       if (!dirty) {
         alive = false;
@@ -883,9 +1138,10 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
     }
     if constexpr (kIsFaid<kStyle>) {
       if (threadIdx.x < 8) {
-        s_lut[threadIdx.x] = a.lut[it * 8 + threadIdx.x];
+        uint8_t* rows = reinterpret_cast<uint8_t*>(s_lut);
+        rows[threadIdx.x] = static_cast<uint8_t>(a.lut[it * 8 + threadIdx.x]);
         if constexpr (kSwapsLut<kStyle>)
-          s_lut_ef[threadIdx.x] = a.lut_ef[it * 8 + threadIdx.x];
+          rows[8 + threadIdx.x] = static_cast<uint8_t>(a.lut_ef[it * 8 + threadIdx.x]);
       }
     }
     if constexpr (kKeepsMap<kStyle>) {
@@ -894,9 +1150,24 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
     }
     __syncthreads();
     const bool in_floor = a.max_iter - 1 - it <= a.floor_iter_thresh;
+    IterLanes lanes{};
+    if constexpr (kIsFaid<kStyle>) {
+      lanes.lut[0] = s_lut[0];
+      lanes.lut[1] = s_lut[1];
+      if constexpr (kSwapsLut<kStyle>) {
+        lanes.lut_ef[0] = s_lut[2];
+        lanes.lut_ef[1] = s_lut[3];
+      }
+    }
+    lanes.act = ~0u;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      if (kKeepsMap<kStyle> && in_floor && s_lme[f]) lanes.floor |= 0xffu << 8 * f;
+      if (kFrame && !s_act[f]) lanes.act &= ~(0xffu << 8 * f);
+    }
+    lanes.bt = a.sign_backtrack ? 0x7f7f7f7fu : 0x80808080u;
     for (int r = 0; r < a.n_rows; ++r) {
-      row_update<kStyle, kFrame, kBits, kF>(en, msg, s_lut, s_lut_ef, unsat, s_lme, s_act,
-                                            in_floor, r, a);
+      row_update<kStyle, kFrame, kBits, kF>(en, msg, unsat, lanes, r, a);
       __syncthreads();
     }
     if constexpr (kFrame) iters += threadIdx.x < kF && s_act[threadIdx.x];
@@ -911,30 +1182,36 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
     if (alive) rounds = bf_tail<kBf, kFrame, kF, kCl>(en, hard, unsat, s_cnt, s_act, s_or, slot, a);
   }
 
-  // the decisions: the BF tail's bits where it ran, else en > 0
+  // the decisions: the BF tail's bits where it ran, else en > 0; a thread
+  // takes a VN's kF frames
   const bool use_hard = kBf != kBfNone && alive;
-  if constexpr (kOut == kHard) {
+  if constexpr (kOut == kHard || kOut == kEn) {
     int8_t* out = out_g + frame0 * n;
-    for (int i = threadIdx.x; i < kF * n; i += kThreads)
-      out[i] = static_cast<int8_t>(use_hard ? hard[i] & 1 : en[i] > 0);
-  } else if constexpr (kOut == kEn) {
-    int8_t* out = out_g + frame0 * n;
-    for (int i = threadIdx.x; i < kF * n; i += kThreads) out[i] = en[i];
+    for (int v = threadIdx.x; v < n; v += kThreads) {
+      const uint32_t w = load_lanes<kF>(en, v);
+#pragma unroll
+      for (int f = 0; f < kF; ++f) {
+        const int e = frame_byte(w, f);
+        out[f * n + v] = static_cast<int8_t>(
+            kOut == kEn ? e : (use_hard ? hard[f * n + v] & 1 : e > 0));
+      }
+    }
   } else {
     // ---- per-frame info-bit errors against the reference word (the
     // all-zero word without one)
     if (threadIdx.x < kF) s_err[threadIdx.x] = 0;
     __syncthreads();
-    for (int f = 0; f < kF; ++f) {
-      const int8_t* rf = ref ? ref + (frame0 + f) * static_cast<size_t>(ref_stride) : nullptr;
-      int cnt = 0;
-      for (int v = threadIdx.x; v < a.n_info; v += kThreads) {
-        const int bit = use_hard ? hard[f * n + v] & 1 : en[f * n + v] > 0;
-        cnt += rf ? bit ^ (rf[v] != 0) : bit;
+    int cnt[kF] = {};
+    for (int v = threadIdx.x; v < a.n_info; v += kThreads) {
+      const uint32_t w = load_lanes<kF>(en, v);
+#pragma unroll
+      for (int f = 0; f < kF; ++f) {
+        const int bit = use_hard ? hard[f * n + v] & 1 : frame_byte(w, f) > 0;
+        cnt[f] += ref ? bit ^ (ref[(frame0 + f) * static_cast<size_t>(ref_stride) + v] != 0)
+                      : bit;
       }
-      cnt = __reduce_add_sync(0xffffffffu, cnt);
-      if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&s_err[f], cnt);
     }
+    warp_flush<kF>(cnt, s_err);
     __syncthreads();
     if (threadIdx.x < kF) err_out[frame0 + threadIdx.x] = s_err[threadIdx.x];
   }
@@ -965,7 +1242,7 @@ int launch(const Buffers& b, const CodeArgs& a, const ChanArgs& c, int batch, vo
   // the tail's walk takes a bit a thread (z <= kThreads), its packed
   // tables a 16-bit map offset, and its state the message region
   if (kBf != kBfNone && (a.z > kThreads || a.n_rows * a.z > 0x10000 ||
-                         tail_bytes(kF, a) > static_cast<size_t>(kF) * a.msg_words * 4))
+                         tail_bytes(kF, a) > static_cast<size_t>(a.msg_words) * 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t st = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         static_cast<int>(smem));

@@ -23,10 +23,12 @@ configuration of ``pallas_decoder.supports`` (``supports``); kernel F
 for the pairs ``DecoderConfig.for_method`` produces (``SIM_PAIRS``), the
 only ones a ``SimConfig`` reaches.  Each comes in both stop modes and
 both widths.  A block holds a few frames' whole decoder state
-in shared memory, and in group mode a thread-block cluster holds one
-32-frame word; ``launch_plan`` picks the width (4-bit messages where
-``msg_bound`` proves |message| <= 7, else 8-bit), the frames a block
-and the shared-memory bytes, and ``DecoderTables.plan`` carries it.
+in shared memory, the frames side by side in the lanes of each word (a
+quad of threads updates a check for all of them at once), and in group
+mode a thread-block cluster holds one 32-frame word; ``launch_plan``
+picks the width (4-bit messages where ``msg_bound`` proves |message| <=
+7, else 8-bit), the frames a block and the shared-memory bytes, and
+``DecoderTables.plan`` carries it.
 Each wrapper launches its kernel on a CUDA tensor and takes its plain
 twin (``*_plain``) on a CPU tensor.  The twins are the composition of
 the plain modules (decoders/core.py ``build_decoder(backend="plain")``:
@@ -34,7 +36,8 @@ syndrome, row updates, BF), plus the error count for B; each agrees with
 its kernel bit for bit.
 
 The kernels run codes of row degree <= ``MAX_DEG`` whose block fits
-in shared memory; other configurations raise before any launch.
+in shared memory, with check-node constants that fit a byte lane
+(``constants_in_lanes``); other configurations raise before any launch.
 """
 
 from __future__ import annotations
@@ -129,11 +132,13 @@ def msg_bound(dcfg: DecoderConfig) -> int | None:
 class LaunchPlan:
     """How the decoder kernels lay a configuration out on the card
     (csrc/decoder.cuh): ``frames`` frames a block, whose en, messages and
-    check map sit in ``smem_bytes`` of dynamic shared memory; in group
-    mode ``cluster`` blocks make one 32-frame word (frame mode launches
-    the blocks unclustered).  A frame's messages are ``msg_bits`` wide:
-    row r's start at word ``msg_off[r]`` of the frame's ``msg_words``,
-    ``(msg_off[r + 1] - msg_off[r]) / z`` words for each zz."""
+    check map sit in ``smem_bytes`` of dynamic shared memory, the frames
+    in lanes; in group mode ``cluster`` blocks make one 32-frame word
+    (frame mode launches the blocks unclustered).  A message is
+    ``msg_bits`` wide, the block's frames' messages of an edge 16 bits
+    together: row r's start at word ``msg_off[r]`` of the block's
+    ``msg_words``, ``(msg_off[r + 1] - msg_off[r]) / z`` words for each
+    zz."""
 
     msg_bits: int
     frames: int
@@ -147,10 +152,13 @@ class LaunchPlan:
         return self.smem_bytes + STATIC_SMEM <= SMEM_LIMIT
 
 
-def _row_words(deg: int, bits: int) -> int:
-    """Words of one (row, zz)'s ``deg`` messages of ``bits`` each, made
-    odd so that a warp's 32 threads hit 32 banks."""
-    return -(-deg * bits // 32) | 1
+def _row_words(deg: int) -> int:
+    """Words of one (row, zz)'s ``deg`` messages for the block's frames,
+    16 bits an edge (4 frames x 4 bits, or 2 x 8): 4 x an odd number, so
+    that a warp's 8 checks x 4 lanes (lane q the words q, q + 4, ...) hit
+    32 banks.  csrc/decoder.cuh ``row_update`` computes the same from the
+    degree."""
+    return 4 * (-(-deg // 8) | 1)
 
 
 def vote_columns(code: QCCode, dcfg: DecoderConfig) -> list:
@@ -184,16 +192,16 @@ def launch_plan(code: QCCode, dcfg: DecoderConfig) -> LaunchPlan:
     bound = msg_bound(dcfg)
     bits = 4 if bound is not None and bound <= 7 else 8
     frames = 4 if bits == 4 else 2
-    off = np.concatenate([[0], np.cumsum([_row_words(int(d), bits) * code.z
+    off = np.concatenate([[0], np.cumsum([_row_words(int(d)) * code.z
                                           for d in code.degrees_np])])
     words = int(off[-1])
     has_bf = dcfg.bf.kind != "none"
     tail = tail_bytes(code, dcfg, frames) if has_bf else 0
-    words = max(words, -(-tail // (4 * frames)))
+    words = max(words, -(-tail // 4))
     # the check map: the BF tail's, and the floor window's and EF 2's votes'
     # (decoder.cuh kKeepsMap)
     keeps_map = has_bf or _style_id(dcfg) in (OMS_SELECTIVE, FAID_EF1, FAID_EF2)
-    smem = (-(-frames * code.n_var // 16) * 16 + frames * words * 4
+    smem = (_round16(frames * code.n_var) + words * 4
             + (frames * code.n_block_rows * code.z if keeps_map else 0))
     return LaunchPlan(msg_bits=bits, frames=frames, cluster=GROUP // frames,
                       msg_off=tuple(int(x) for x in off), msg_words=words,
@@ -389,6 +397,25 @@ def check_launch(batch: int, tables: DecoderTables) -> None:
         raise NotImplementedError(
             f"{tables.plan.frames} frames' decoder state ({tables.plan.smem_bytes} "
             f"bytes) exceed a block's shared memory")
+    if not constants_in_lanes(tables.dcfg):
+        raise NotImplementedError(
+            "kernel bounds: the check-node constants and their negations must "
+            "fit int8 (an offset in [-127, 127]; NMS factors with "
+            "(31 * factor) >> 5 >= -127)")
+
+
+def constants_in_lanes(dcfg: DecoderConfig) -> bool:
+    """Whether every check-node constant c of ``dcfg``, and -c, fits the
+    kernels' byte lanes (csrc/decoder.cuh ``constants``): c is at most 7,
+    and at least -offset for FAID and simple-offset OMS (a magnitude is
+    >= 0), (31 * factor) >> 5 for NMS (a minimum is at most 31), -2 for
+    selective OMS."""
+    style = _style_id(dcfg)
+    if style == NMS:
+        return all((31 * f) >> 5 >= -127 for f in (dcfg.factor_1, dcfg.factor_2))
+    if style == OMS_SELECTIVE:
+        return True
+    return -127 <= dcfg.oms_offset <= 127
 
 
 def frame_mode(dcfg: DecoderConfig) -> int:

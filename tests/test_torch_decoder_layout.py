@@ -99,7 +99,9 @@ def test_launch_plan(code_name, label, dcfg):
     """Frames x cluster = one 32-frame word, at most 16 blocks a cluster,
     a block's shared bytes within the card's 232,448, 4-bit messages
     exactly where the bound is <= 7, and the message region laid out as
-    decoder.cuh reads it."""
+    decoder.cuh reads it: the block's frames in lanes, 16 bits an edge
+    (4 frames x 4 bits, or 2 x 8), each (row, zz) 4 x an odd number of
+    words, no larger than a frame-by-frame region of odd word counts."""
     code = _codes()[code_name]
     plan = cd.launch_plan(code, dcfg)
     bound = cd.msg_bound(dcfg)
@@ -108,26 +110,101 @@ def test_launch_plan(code_name, label, dcfg):
     assert plan.fits and plan.smem_bytes + cd.STATIC_SMEM <= 232_448
     assert (plan.msg_bits == 4) == (bound is not None and bound <= 7)
     assert plan.frames == (4 if plan.msg_bits == 4 else 2)
-    # row r: z groups of an odd number of words holding its messages
+    assert plan.frames * plan.msg_bits == 16
+    # row r: z groups of 4 x an odd number of words, lane q of a check's
+    # quad the words q, q + 4, q + 8, two edges of the block's frames each
     off = np.asarray(plan.msg_off)
     assert off[0] == 0 and len(off) == code.n_block_rows + 1
     words = np.diff(off) // code.z
-    assert (np.diff(off) % code.z == 0).all() and (words % 2 == 1).all()
-    assert (words * 32 >= code.degrees_np * plan.msg_bits).all()
+    assert (np.diff(off) % code.z == 0).all() and (words % 8 == 4).all()
+    assert (words * 32 >= code.degrees_np * plan.frames * plan.msg_bits).all()
+    assert (words <= 4 * _header_int("kSlots")).all()
+    # a warp's 8 checks x 4 lanes load 32 banks
+    for w in set(words.tolist()):
+        banks = {(zz * w + q) % 32 for zz in range(8) for q in range(4)}
+        assert len(banks) == 32, w
+    # no larger than the frame-by-frame region: kF frames of an odd
+    # number of words a (row, zz)
+    per_frame = (-(-code.degrees_np * plan.msg_bits // 32)) | 1
+    assert off[-1] <= plan.frames * int((per_frame * code.z).sum())
     has_bf = dcfg.bf.kind != "none"
     tail = _tail_bytes(code, dcfg, plan.frames) if has_bf else 0
     assert tail == (cd.tail_bytes(code, dcfg, plan.frames) if has_bf else 0)
-    assert plan.msg_words == max(off[-1], -(-tail // (4 * plan.frames)))
+    assert plan.msg_words == max(off[-1], -(-tail // 4))
     keeps_map = has_bf or cd.kernel_ids(dcfg)[0] in (cd.OMS_SELECTIVE, cd.FAID_EF1,
                                                      cd.FAID_EF2)
     assert plan.smem_bytes == (-(-plan.frames * code.n_var // 16) * 16
-                               + plan.frames * plan.msg_words * 4
+                               + plan.msg_words * 4
                                + keeps_map * plan.frames * code.n_block_rows * code.z)
-    if code_name == "50gpon" and plan.msg_bits == 4:
-        # en 17,664 + messages 36,864 + map 3,072 bytes a frame
-        assert plan.smem_bytes == 4 * (17_664 + 36_864 + 3_072 * keeps_map)
+    if code_name == "50gpon":
+        # messages 147,456 bytes at either width; at 4 bits en 17,664 +
+        # messages 36,864 + map 3,072 bytes a frame, as frame by frame
+        assert plan.msg_words * 4 == 147_456
+        if plan.msg_bits == 4:
+            assert plan.smem_bytes == 4 * (17_664 + 36_864 + 3_072 * keeps_map)
     tables = cd.decoder_tables(code, dcfg, "cpu")
     assert tables.plan == plan and tables.msg_off.tolist() == list(plan.msg_off)
+
+
+def _header_int(name):
+    """A constexpr int of csrc/decoder.cuh, its initializer evaluated with
+    the header's earlier constants."""
+    head = (CSRC / "decoder.cuh").read_text()
+    consts = {}
+    for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", head):
+        try:
+            consts[m[1]] = int(eval(m[2].replace("/", "//"), {}, dict(consts)))
+        except (NameError, SyntaxError, TypeError):
+            continue
+    return consts[name]
+
+
+def test_layout_constants_match_the_header():
+    """The plan's bounds are the header's: kMaxDeg and kThreads, a lane's
+    kSlots words (every row of degree <= kMaxDeg fits 4 x kSlots words a
+    (row, zz)), and the frames a block and blocks a cluster by width."""
+    assert _header_int("kMaxDeg") == cd.MAX_DEG
+    assert _header_int("kThreads") == cd.THREADS
+    assert _header_int("kGroup") == 32
+    slots = _header_int("kSlots")
+    assert all(cd._row_words(d) <= 4 * slots for d in range(1, cd.MAX_DEG + 1))
+    assert 2 * 4 * slots >= cd.MAX_DEG
+    head = (CSRC / "decoder.cuh").read_text()
+    # the kernel's words a (row, zz), from the degree, are the plan's
+    m = re.search(r"wr = (4 \* \(\(deg \+ 7\) / 8 \| 1\));", head)
+    assert m, "row_update's words a (row, zz) not found"
+    assert all(eval(m[1].replace("/", "//"), {}, {"deg": d}) == cd._row_words(d)
+               for d in range(1, cd.MAX_DEG + 1))
+    assert "constexpr int kFrames = kBits == 4 ? 4 : 2;" in head
+    assert "constexpr int kBias = kBits == 4 ? 8 : 0;" in head
+    assert "kBits == 4 ? 0x88888888u : 0u" in head   # a zero message, 8 - 0
+
+
+@pytest.mark.parametrize("label,dcfg,fits", [
+    ("offset 127", dataclasses.replace(DecoderConfig.for_method(DecodeMethod.FAID_DTBF),
+                                       oms_offset=127), True),
+    ("offset 128", dataclasses.replace(DecoderConfig.for_method(DecodeMethod.FAID_DTBF),
+                                       oms_offset=128), False),
+    ("OMS offset -128", dataclasses.replace(DecoderConfig.for_method(DecodeMethod.OMS),
+                                            oms_mode=0, oms_offset=-128), False),
+    ("NMS -131", dataclasses.replace(DecoderConfig.for_method(DecodeMethod.NMS),
+                                     factor_1=-131), True),
+    ("NMS -132", dataclasses.replace(DecoderConfig.for_method(DecodeMethod.NMS),
+                                     factor_2=-132), False),
+    ("selective OMS", dataclasses.replace(DecoderConfig.for_method(DecodeMethod.OMS),
+                                          factor_1=-500, oms_offset=500), True)])
+def test_constants_fit_the_lanes(label, dcfg, fits):
+    """A check-node constant and its negation take a byte lane: the
+    wrapper refuses, before any launch, a configuration whose constants
+    can leave [-127, 127] (an offset beyond 127, an NMS factor whose
+    (31 * factor) >> 5 is below -127), and takes the rest."""
+    assert cd.constants_in_lanes(dcfg) == fits
+    tables = cd.decoder_tables(toy_code(), dcfg, "cpu")
+    if fits:
+        cd.check_launch(64, tables)
+    else:
+        with pytest.raises(NotImplementedError, match="int8"):
+            cd.check_launch(64, tables)
 
 
 def _round16(n):
@@ -158,7 +235,7 @@ def test_tail_state_fits_the_message_region(code_name, label, dcfg):
     code = _codes()[code_name]
     plan = cd.launch_plan(code, dcfg)
     tables = cd.decoder_tables(code, dcfg, "cpu")
-    frames, region = plan.frames, plan.frames * plan.msg_words * 4
+    frames, region = plan.frames, plan.msg_words * 4
     map_off = _round16(frames * code.n_var)
     tab_off = map_off + _round16(frames * code.n_block_rows * code.z)
     n_vote, n_adj = tables.vote_col.numel(), int(tables.vote_ptr[-1])
