@@ -146,11 +146,12 @@ chain's parts, and of the QAM rounds on both channels, and G's bound;
      backend_parity at batch 128, two words: the six methods' kernels D
      and E equal to their plain twin;
  25. the BF tail's share of the decoder where tails run: kernel F at the
-     waterfall cell's point (FAID-2B1C, scale 12.5, QPSK, zero word, 3.6
-     dB) and kernel B on the 16-QAM cell's LLRs (kernel G at 7.5 dB, depth
-     2, codewords), each timed in turns against the same launch at a
-     round cap of 0 and at 1 (CUDA events, batch 2048): MP, the tail, its
-     opening and each further round; beside them every tail instance's
+     waterfall cells' point (FAID-2B1C at scale 12.5, and OMS+BF's static
+     tail; QPSK, zero word, 3.6 dB) and kernel B on the 16-QAM cell's LLRs
+     (kernel G at 7.5 dB, depth 2, codewords), each timed in turns against
+     the same launch at a round cap of 0 and at 1 (CUDA events, batch
+     2048): MP, the tail, its opening and each further round, and the
+     split by the kernel's phase clocks; beside them every tail instance's
      ptxas registers and spills; and MP's time an iteration, the slope
      between 6 and 3 fixed iterations with the tail's cap at 0, of F's
      FAID+DTBF instance (zero word, 4.0 dB) and of B's (the 16-QAM LLRs).  `python3 chip_smoke.py --tail-split`
@@ -1205,12 +1206,13 @@ def scripts_on_card(card, reset_counts, counts):
 # ---- phase 25: where the BF tail's time goes ---------------------------------
 
 def tail_split(code, dev, card, decoders) -> None:
-    """Phase 25: the MP / BF-tail split of the two cells whose decoder runs
+    """Phase 25: the MP / BF-tail split of the three cells whose decoder runs
     tails, each launch timed against the same launch with the tail's round
-    cap at 0 (CUDA events, in turns, batch 2048): kernel F on the waterfall
-    cell's point (FAID-2B1C, scale 12.5, QPSK, zero word, 3.6 dB) and
-    kernel B on the 16-QAM cell's LLRs (kernel G at 7.5 dB, depth 2,
-    codewords, FAID+DTBF); beside them the ptxas report of every decoder
+    cap at 0 (CUDA events, in turns, batch 2048), and the kernel's own
+    phase clocks over 10 launches: kernel F on the waterfall cells' point
+    (FAID-2B1C at scale 12.5, and OMS+BF's static tail, QPSK, zero word,
+    3.6 dB) and kernel B on the 16-QAM cell's LLRs (kernel G at 7.5 dB,
+    depth 2, codewords, FAID+DTBF); beside them the ptxas report of every decoder
     instance with a tail; and MP's time an iteration of F's FAID+DTBF
     instance and of B's, fixed iterations with the tail's cap at 0."""
     from faid_tpu_torch import sigma_for
@@ -1220,6 +1222,7 @@ def tail_split(code, dev, card, decoders) -> None:
     from faid_tpu_torch.ops import cuda_decoder as cd
     from faid_tpu_torch.ops import cuda_sim as cs
     from faid_tpu_torch.ops import philox, qam_plan
+    from faid_tpu_torch.utils import kernels
 
     t_phase = time.perf_counter()
     for key, r in sorted(decoders.items(), key=str):
@@ -1249,6 +1252,18 @@ def tail_split(code, dev, card, decoders) -> None:
               f"{ms_one:.4f} ms (the tail's opening and first round "
               f"{ms_one - ms_mp:.4f} ms, each further round "
               f"{(ms_all - ms_one) / max(mean - 1, 1e-9):.4f} ms)")
+        # the kernel's own phase clocks over 10 launches: the split that
+        # the benchmark's decoder.tail_ms_per_round reads
+        clocks = kernels.phase_clocks(dev)
+        start = clocks.tolist()
+        for _ in range(10):
+            run(t)
+        cycles = [b - a for a, b in zip(start, clocks.tolist())]
+        share = cycles[2] / sum(cycles)
+        print(f"{what}: phase clocks, prologue {cycles[0] / sum(cycles):.1%}, MP "
+              f"{cycles[1] / sum(cycles):.1%}, the BF tail {share:.1%} of the blocks' "
+              f"cycles; the tail by them {share * ms_all:.4f} ms of {ms_all:.4f} "
+              f"(by the cap at 0: {ms_all - ms_mp:.4f} ms)")
 
     def mp_iteration(what, run, dcfg):
         # fixed iterations and the tail's cap at 0: the slope between the
@@ -1284,6 +1299,16 @@ def tail_split(code, dev, card, decoders) -> None:
     out = cs.fused_sim(params, wt, **kw)
     report("phase 25: kernel F, FAID-2B1C at 3.6 dB, scale 12.5, zero word",
            lambda t: cs.fused_sim(params, t, **kw), wt, out["bf_rounds"])
+
+    # kernel F, the OMS+BF waterfall cell's point: the static tail
+    ocfg = SimConfig(decode_method=DecodeMethod.OMS_BF, max_iteration=6, mod_type=2,
+                     quant_bits=4, scale=13.0, batch_per_device=BATCH, fake_encode=True,
+                     channel_backend="fused", stop_mode="group", seed=SEED)
+    ot = cd.decoder_tables(code, ocfg.decoder(), dev)
+    oparams = cc.threshold_ints(ocfg, sigma_for(ocfg, 3.6)).to(dev)
+    out = cs.fused_sim(oparams, ot, **kw)
+    report("phase 25: kernel F, OMS+BF at 3.6 dB, zero word",
+           lambda t: cs.fused_sim(oparams, t, **kw), ot, out["bf_rounds"])
 
     # kernel B, the 16-QAM cell's LLRs
     qcfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6, mod_type=4,

@@ -120,7 +120,13 @@
 //  * code tables are runtime arguments (row pointers, entry columns and
 //    shifts, the message offsets, the voting columns' adjacency, the LUT
 //    rows), so the same kernel also runs a toy code; kMaxDeg bounds the
-//    per-thread register arrays of one row and the wrapper checks it.
+//    per-thread register arrays of one row and the wrapper checks it;
+//  * the phase clocks: kernels B and F may take a [3] uint64 buffer
+//    (`phases`, null in D and E) to which each block adds its SM cycles of
+//    the prologue, MP and the BF tail, thread 0 reading clock64() at the
+//    phases' ends; never reset, so a reader takes differences.  In group
+//    mode a word's blocks run the same iterations and rounds, so the
+//    phases' shares of the cycles are their shares of the launch.
 // What holds it back: a cluster of 8 needs 8 SMs of one GPC, and 15 fit
 // at once, so 64 words run in 5 waves on 120 SMs; a barrier a row, and
 // within the row the quad's shared loads of en, whose four columns meet
@@ -200,6 +206,8 @@ struct Buffers {
   int32_t* rounds;     // [B] kernels B, D and F
   const int8_t* ref;   // [B, ref_stride] the reference word, or null for
   int ref_stride;      //   the all-zero word (kernels B and F)
+  unsigned long long* phases = nullptr;   // [3] the phase clocks (kernels B
+                                          //   and F; null: none)
 };
 
 // Kernel F's channel: kernel A's arguments (quantile_channel.cu).
@@ -1073,7 +1081,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
                int32_t* __restrict__ err_out, int32_t* __restrict__ iters_out,
                int32_t* __restrict__ bf_out, const int8_t* __restrict__ ref, int ref_stride,
-               CodeArgs a, ChanArgs c) {
+               unsigned long long* __restrict__ phases, CodeArgs a, ChanArgs c) {
   constexpr int kF = kFrames<kBits>;
   constexpr int kCl = kCluster<kBits>;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -1082,6 +1090,21 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
   __shared__ int s_err[kF];
   __shared__ int s_act[kF], s_dirty;       // frame mode
   __shared__ int s_or[3];                  // group mode: cluster_or's slots
+  __shared__ unsigned long long s_clk[3];  // the phase clocks' lap start, prologue, MP
+
+  // The phase clocks (kernels B and F alone): thread 0 takes its laps, at
+  // the start, after the ingest and after MP, in every launch and keeps
+  // them in shared memory, not in registers across MP; only the adds to
+  // `phases` wait for a buffer (gating the laps on it too cost F's
+  // static-BF instance more, the measurement recorded in PERF.md section
+  // 6).  The tail adds 0 where none ran.
+  constexpr bool kClocks = kOut == kStats || kOut == kSim;
+  auto lap = [&](int k) {
+    const unsigned long long now = clock64();
+    s_clk[k] = now - s_clk[0];
+    s_clk[0] = now;
+  };
+  if (kClocks && threadIdx.x == 0) s_clk[0] = clock64();
 
   const int n = a.n_var;
   const size_t frame0 = static_cast<size_t>(blockIdx.x) * kF;
@@ -1118,6 +1141,7 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
   for (int i = threadIdx.x; i < a.msg_words; i += kThreads) msg[i] = zero;
   if (kFrame && threadIdx.x < kF) s_act[threadIdx.x] = 1;
   __syncthreads();
+  if (kClocks && threadIdx.x == 0) lap(1);
 
   // ---- layered MP iterations; group mode stops the word when all 32
   // frames are clean, frame mode freezes each clean frame and stops the
@@ -1173,6 +1197,7 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
     if constexpr (kFrame) iters += threadIdx.x < kF && s_act[threadIdx.x];
     else ++iters;
   }
+  if (kClocks && threadIdx.x == 0) lap(2);
 
   // ---- BF tail, skipped when MP stopped clean (bf_tail).  Its bits live
   // in the message region, free after MP.
@@ -1180,6 +1205,12 @@ decoder_kernel(const int8_t* __restrict__ llr, int8_t* __restrict__ out_g,
   int rounds = 0;
   if constexpr (kBf != kBfNone) {
     if (alive) rounds = bf_tail<kBf, kFrame, kF, kCl>(en, hard, unsat, s_cnt, s_act, s_or, slot, a);
+  }
+  if (kClocks && threadIdx.x == 0 && phases != nullptr) {
+    const unsigned long long tail = kBf != kBfNone && alive ? clock64() - s_clk[0] : 0;
+    atomicAdd(phases, s_clk[1]);
+    atomicAdd(phases + 1, s_clk[2]);
+    if (tail) atomicAdd(phases + 2, tail);
   }
 
   // the decisions: the BF tail's bits where it ran, else en > 0; a thread
@@ -1276,7 +1307,7 @@ int launch(const Buffers& b, const CodeArgs& a, const ChanArgs& c, int batch, vo
   }
   if (active == 0) return kNoCluster;
   st = cudaLaunchKernelEx(&cfg, kernel, b.llr, b.out, b.err, b.iters, b.rounds, b.ref,
-                          b.ref_stride, a, c);
+                          b.ref_stride, b.phases, a, c);
   if (st != cudaSuccess) return static_cast<int>(st);
   return static_cast<int>(cudaGetLastError());
 }

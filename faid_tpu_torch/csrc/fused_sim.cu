@@ -18,12 +18,14 @@
 // quantile channel (cw [B, n_var] int8, or null for the all-zero word;
 // params [2L+1] int32 thresholds) and the decoder -> err_bits, mp_iters,
 // bf_rounds, mod_error_bits, mod_error_symbols, each [B] int32 (bf_rounds
-// 0 without a BF tail).  frame: 1 for frame stop mode; bits: the message
-// width, 4 or 8.  info: see faid::launch (null to launch).
+// 0 without a BF tail).  phases: [3] uint64 the launch's blocks add their
+// cycles of the prologue, MP and the BF tail to, or null.  frame: 1 for
+// frame stop mode; bits: the message width, 4 or 8.  info: see
+// faid::launch (null to launch).
 extern "C" int faid_fused_sim(int style, int bf, int frame, int bits, const void* cw,
                               void* err_bits, void* mp_iters, void* bf_rounds, void* mod_bits,
-                              void* mod_syms, const void* params, int mod_type, int L,
-                              int clip_lo, int clip_hi, unsigned long long seed,
+                              void* mod_syms, const void* params, void* phases, int mod_type,
+                              int L, int clip_lo, int clip_hi, unsigned long long seed,
                               unsigned long long round, unsigned int frame0,
                               const faid::CodeArgs* args, int batch, void* stream, int* info) {
   const faid::Buffers buffers{nullptr,
@@ -32,7 +34,8 @@ extern "C" int faid_fused_sim(int style, int bf, int frame, int bits, const void
                               static_cast<int32_t*>(mp_iters),
                               static_cast<int32_t*>(bf_rounds),
                               static_cast<const int8_t*>(cw),
-                              args->n_var};
+                              args->n_var,
+                              static_cast<unsigned long long*>(phases)};
   const faid::ChanArgs chan{static_cast<const int32_t*>(params),
                             static_cast<int32_t*>(mod_bits),
                             static_cast<int32_t*>(mod_syms),

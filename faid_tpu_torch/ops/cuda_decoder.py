@@ -33,7 +33,8 @@ Each wrapper launches its kernel on a CUDA tensor and takes its plain
 twin (``*_plain``) on a CPU tensor.  The twins are the composition of
 the plain modules (decoders/core.py ``build_decoder(backend="plain")``:
 syndrome, row updates, BF), plus the error count for B; each agrees with
-its kernel bit for bit.
+its kernel bit for bit.  B and F also add their blocks' SM cycles of the
+prologue, MP and the BF tail to the device's ``kernels.phase_clocks``.
 
 The kernels run codes of row degree <= ``MAX_DEG`` whose block fits
 in shared memory, with check-node constants that fit a byte lane
@@ -444,7 +445,8 @@ def stats_decode(llr: torch.Tensor, tables: DecoderTables,
     errors against ``ref`` [batch, >= n_info] (the codeword, or its info
     bits; None: the all-zero word): (err_bits, mp_iters, bf_rounds), each
     [batch] int32.  A CPU tensor takes the plain twin; a CUDA tensor
-    launches kernel B."""
+    launches kernel B, which adds its blocks' cycles to the device's
+    ``kernels.phase_clocks``."""
     ref = reference_word(ref, llr.shape[0], tables.code.n_info, llr.device)
     dev = kernels.kernel_device(llr, tables.device)
     if dev is None:
@@ -457,7 +459,8 @@ def stats_decode(llr: torch.Tensor, tables: DecoderTables,
     kernels.launch("faid_stats_decoder", dev, style, bf, frame_mode(tables.dcfg),
                    tables.plan.msg_bits, llr.data_ptr(), err.data_ptr(),
                    iters.data_ptr(), rounds.data_ptr(), kernels.ptr(ref),
-                   0 if ref is None else ref.shape[1], tables.args, batch)
+                   0 if ref is None else ref.shape[1],
+                   kernels.phase_clocks(dev).data_ptr(), tables.args, batch)
     return err, iters, rounds
 
 
@@ -513,11 +516,11 @@ def launch_info(kernel: str, tables: DecoderTables, batch: int = GROUP) -> dict:
     style, bf = kernel_ids(tables.dcfg)
     fm, bits = frame_mode(tables.dcfg), tables.plan.msg_bits
     calls = {   # each entry's arguments before the tables, with no buffers
-        "B": ("faid_stats_decoder", (style, bf, fm, bits, *[None] * 5, 0)),
+        "B": ("faid_stats_decoder", (style, bf, fm, bits, *[None] * 5, 0, None)),
         "D": ("faid_full_decoder", (style, bf, fm, bits, *[None] * 4)),
         "E": ("faid_mp_decoder", (style, fm, bits, *[None] * 3)),
         # F: QPSK and no thresholds
-        "F": ("faid_fused_sim", (style, bf, fm, bits, *[None] * 7, 2, *[0] * 6))}
+        "F": ("faid_fused_sim", (style, bf, fm, bits, *[None] * 8, 2, *[0] * 6))}
     if kernel not in calls:
         raise ValueError(f"no decoder kernel {kernel!r}")
     entry, head = calls[kernel]

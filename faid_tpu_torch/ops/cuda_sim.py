@@ -77,7 +77,8 @@ def fused_sim(params: torch.Tensor, tables: cd.DecoderTables, *, seed: int,
     of ``tables``, counted against ``cw`` ([batch, n_var] int8, or None
     for the all-zero word).  Returns the dict of ``COUNTERS``, each
     [batch] int32 (bf_rounds 0 without a BF tail).  A CPU ``params`` takes
-    the plain twin; a CUDA one launches kernel F."""
+    the plain twin; a CUDA one launches kernel F, which adds its blocks'
+    cycles to the device's ``kernels.phase_clocks``."""
     code, dcfg = tables.code, tables.dcfg
     dev = kernels.kernel_device(params, tables.device)
     if dev is None:
@@ -99,8 +100,8 @@ def fused_sim(params: torch.Tensor, tables: cd.DecoderTables, *, seed: int,
     kernels.launch("faid_fused_sim", dev, style, bf, cd.frame_mode(dcfg),
                    tables.plan.msg_bits, kernels.ptr(cw),
                    *(out[k].data_ptr() for k in COUNTERS), params.data_ptr(),
-                   mod_type, max(hi, -lo), lo, hi, seed, rnd, frame0, tables.args,
-                   batch)
+                   kernels.phase_clocks(dev).data_ptr(), mod_type, max(hi, -lo), lo,
+                   hi, seed, rnd, frame0, tables.args, batch)
     return out
 
 

@@ -32,6 +32,10 @@ stream changes.
 Each sync (one loop call of ``rounds_per_sync`` rounds, the counter read,
 the bookkeeping and the writes) is one record of the campaign's spans
 (utils/trace.py), with the device's idle time before its first launch.
+On a CUDA device the counter read also takes the decoder's phase clocks
+(utils/kernels.py ``phase_clocks``) and adds the sync's SM cycles of each
+phase to the record's counters (``PHASE_COUNTERS``), apart from the
+statistics that the runner sums and checkpoints.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from ..code.qc_matrix import QCCode, load_code
 from ..config import SimConfig
 from ..ops import philox
 from ..parallel.mesh import Mesh, build_sharded_sim_loop, make_mesh
-from ..utils import trace
+from ..utils import kernels, trace
 from .pipeline import build_debug_step, quantile_draws
 
 COUNTER_KEYS = (
@@ -61,6 +65,9 @@ COUNTER_KEYS = (
 )
 # Vector-valued counters (iteration histograms) accumulated elementwise.
 HIST_KEYS = ("mp_hist", "bf_hist")
+# A sync record's counters of the decoder kernel's SM cycles in each phase,
+# summed over its blocks (the order of utils/kernels.py ``PHASES``).
+PHASE_COUNTERS = tuple(f"decoder.{p}_cycles" for p in kernels.PHASES)
 
 
 # Oldest error-bearing round ranges kept per SNR point: enough to replay
@@ -210,6 +217,8 @@ class MonteCarloRunner:
         self.rounds_per_sync = max(1, cfg.rounds_per_sync)
         self.loop = build_sharded_sim_loop(self.code, cfg, mesh,
                                            self.rounds_per_sync)
+        self._phases = kernels.phase_clocks(self.device)
+        self._phases_seen = None
         self.checkpoint_path = Path(checkpoint_path) if checkpoint_path else None
         self.max_rounds_per_snr = max_rounds_per_snr
         self.results: list[SnrResult] = []
@@ -329,6 +338,9 @@ class MonteCarloRunner:
         t0 = time.monotonic()
         rnd = self._state["round"]
         sync = 0
+        if self._phases is not None:
+            # what ran before this point's first sync is none of its cycles
+            self._phases_seen = self._phases.tolist()
         while (not self._stop_satisfied(c) and rnd < self.max_rounds_per_snr
                and not self._budget_exhausted(c)):
             # the sync's last round must stay inside this point's rounds
@@ -344,6 +356,7 @@ class MonteCarloRunner:
                 trace.launched()
                 with trace.span("runner.counter_read"):
                     stats = {k: v.tolist() for k, v in raw.items()}
+                    self._count_phases()
                 with trace.span("runner.bookkeeping"):
                     for k in c:
                         c[k] = _add_counter(c[k], stats[k])
@@ -373,6 +386,17 @@ class MonteCarloRunner:
         seconds = time.monotonic() - t0
         return SnrResult(snr_db, dict(c), seconds,
                          list(self._state["err_chunks"]))
+
+    def _count_phases(self) -> None:
+        """Adds the decoder's cycles in each phase since the last read to
+        the open sync's counters.  Read after the sync's counters, the
+        clocks hold every launch of the sync, with no wait of their own."""
+        if self._phases is None:
+            return
+        now = self._phases.tolist()
+        for name, a, b in zip(PHASE_COUNTERS, now, self._phases_seen):
+            trace.count(name, a - b)
+        self._phases_seen = now
 
     def run(self, progress=None) -> list[SnrResult]:
         """Run every pending SNR point; returns all results."""

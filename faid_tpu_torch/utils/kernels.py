@@ -13,6 +13,8 @@ Every kernel wrapper goes through one seam: ``kernel_device`` sends a
 CPU tensor to the plain twin and picks the CUDA device to launch on,
 ``launch`` calls the entry point on that device's current stream, adds
 one to the kernel's letter in ``launches`` and raises on a bad status.
+Kernels B and F add each block's SM cycles of the prologue, MP and the
+BF tail to their device's ``phase_clocks``.
 """
 
 from __future__ import annotations
@@ -75,11 +77,11 @@ _SIGNATURES = {
     "faid_qam_channel": (
         [_P] * 4 + [_I] * 8
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
-    "faid_stats_decoder": ([_I] * 4 + [_P] * 5 + [_I, _ARGS, _I, _P, _P], _I),
+    "faid_stats_decoder": ([_I] * 4 + [_P] * 5 + [_I, _P, _ARGS, _I, _P, _P], _I),
     "faid_full_decoder": ([_I] * 4 + [_P] * 4 + [_ARGS, _I, _P, _P], _I),
     "faid_mp_decoder": ([_I] * 3 + [_P] * 3 + [_ARGS, _I, _P, _P], _I),
     "faid_fused_sim": (
-        [_I] * 4 + [_P] * 7 + [_I] * 4
+        [_I] * 4 + [_P] * 8 + [_I] * 4
         + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _ARGS, _I, _P, _P], _I),
     "faid_message_bits": (
         [_P, _I, _I, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, _P], _I),
@@ -95,6 +97,10 @@ KERNEL_LETTERS = {
 _TAKES_INFO = frozenset(n for n, (a, _) in _SIGNATURES.items() if _ARGS in a)
 # launches of each kernel by its letter, counted by ``launch``
 launches = collections.Counter()
+# the decoder phases whose cycles kernels B and F count, in
+# csrc/decoder.cuh's order (``phase_clocks``)
+PHASES = ("prologue", "mp", "tail")
+_phase_clocks: dict[torch.device, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -198,6 +204,20 @@ def _device(x) -> torch.device:
         # tensors created on "cuda" report the indexed current device
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def phase_clocks(device) -> torch.Tensor | None:
+    """The [3] int64 tensor on CUDA device ``device`` to which every launch
+    of kernels B and F adds its blocks' SM cycles of the prologue (the
+    channel or the LLR ingest), MP and the BF tail (``PHASES``); made at
+    first use and never reset, so a reader takes differences.  None for
+    the CPU, whose plain twins count no cycles."""
+    dev = kernel_device(device)
+    if dev is None:
+        return None
+    if dev not in _phase_clocks:
+        _phase_clocks[dev] = torch.zeros(len(PHASES), dtype=torch.int64, device=dev)
+    return _phase_clocks[dev]
 
 
 def ptr(t: torch.Tensor | None):
